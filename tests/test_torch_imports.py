@@ -1,0 +1,51 @@
+"""The PyTorch port stands alone: none of its modules, and not
+chip_smoke.py, imports JAX, its libraries, PIL or the JAX package; and
+chip_smoke.py on a machine without a CUDA device fails fast without
+printing a result."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import unsupervised_pose_estimation_tpu_torch as port
+
+ROOT = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL",
+           "unsupervised_pose_estimation_tpu")
+
+
+def port_modules():
+    names = [port.__name__]
+    for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+        names.append(info.name)
+    return names
+
+
+def test_port_imports_nothing_of_jax():
+    modules = port_modules()
+    assert len(modules) >= 20
+    code = "\n".join(
+        ["import sys"]
+        + [f"sys.modules[{name!r}] = None" for name in BLOCKED]
+        + [f"import {name}" for name in modules]
+        + ["import chip_smoke",
+           "leaked = [m for m in sys.modules if m.split('.')[0] in "
+           f"{BLOCKED!r} and sys.modules[m] is not None]",
+           "assert not leaked, leaked",
+           "print('ok', len(sys.modules))"])
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_chip_smoke_fails_fast_without_a_card():
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=60)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

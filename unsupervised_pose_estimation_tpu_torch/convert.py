@@ -1,0 +1,96 @@
+"""Weights of the reference JAX package -> this package's state_dict.
+
+``from_jax`` takes the reference's flax ``params`` and ``batch_stats`` trees
+(nested dicts keyed by model name; leaves as numpy arrays, or anything
+``np.asarray`` accepts) and returns the ``state_dict`` of a
+``train.bundle.ModelBundle``. It is the inverse of the ``.pth`` importers of
+``unsupervised_pose_estimation_tpu/train/checkpoint.py`` (``_conv_w``,
+``_deconv_w``, ``_bn``, ``_resnet_tree`` and the decoder importers), kept
+here as its own copy. Both packages build their BatchNorms with eps 1e-5,
+so the running statistics carry over as they are.
+"""
+
+from __future__ import annotations
+
+import re
+from collections import OrderedDict
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def _conv(k):
+    """flax conv (kh, kw, in, out) -> torch (out, in, kh, kw)."""
+    return np.transpose(np.asarray(k), (3, 2, 0, 1))
+
+
+def _deconv(k):
+    """flax Deconv2x (kh, kw, out, in) -> torch transposed conv
+    (in, out, kh, kw)."""
+    return np.transpose(np.asarray(k), (3, 2, 0, 1))
+
+
+def _bn(sd, prefix, p, s):
+    sd[prefix + ".weight"] = p["scale"]
+    sd[prefix + ".bias"] = p["bias"]
+    sd[prefix + ".running_mean"] = s["mean"]
+    sd[prefix + ".running_var"] = s["var"]
+    sd[prefix + ".num_batches_tracked"] = np.array(0, np.int64)
+
+
+def _resnet(sd, prefix, params, stats):
+    pre = prefix + ".encoder."
+    sd[pre + "conv1.weight"] = _conv(params["stem"]["conv"]["kernel"])
+    _bn(sd, pre + "bn1", params["stem"]["bn"], stats["stem"]["bn"])
+    for name, block in params.items():
+        m = re.fullmatch(r"layer(\d)_(\d+)", name)
+        if not m:
+            continue
+        bpre = f"{pre}layer{m.group(1)}.{m.group(2)}."
+        for sub, tree in block.items():
+            st = stats[name][sub]["bn"]
+            if sub == "down":
+                sd[bpre + "downsample.0.weight"] = _conv(tree["conv"]["kernel"])
+                _bn(sd, bpre + "downsample.1", tree["bn"], st)
+            else:
+                k = sub[len("cb"):]
+                sd[f"{bpre}conv{k}.weight"] = _conv(tree["conv"]["kernel"])
+                _bn(sd, f"{bpre}bn{k}", tree["bn"], st)
+
+
+def _depth(sd, prefix, params, stats):
+    pre = prefix + ".decoder."
+    for j, i in enumerate(range(4, -1, -1)):
+        sd[f"{pre}{j}.weight"] = _deconv(params[f"deconv_{i}"]["kernel"])
+        sd[f"{pre}{j}.bias"] = params[f"deconv_{i}"]["bias"]
+        for r in range(2):
+            conv = params[f"upconv_{i}_{r}"]["conv3x3"]["conv"]
+            sd[f"{pre}{5 + 2 * j + r}.conv.conv.weight"] = _conv(conv["kernel"])
+            sd[f"{pre}{5 + 2 * j + r}.conv.conv.bias"] = conv["bias"]
+        _bn(sd, f"{prefix}.bn.{i}", params[f"bn_{i}"], stats[f"bn_{i}"])
+    scales = sorted(int(k.split("_")[1]) for k in params
+                    if k.startswith("dispconv_"))
+    for j, s in enumerate(scales):
+        conv = params[f"dispconv_{s}"]["conv"]
+        sd[f"{pre}{15 + j}.conv.weight"] = _conv(conv["kernel"])
+        sd[f"{pre}{15 + j}.conv.bias"] = conv["bias"]
+
+
+def _pose(sd, prefix, params):
+    for j, name in enumerate(("squeeze", "pose_0", "pose_1", "pose_2")):
+        sd[f"{prefix}.net.{j}.weight"] = _conv(params[name]["kernel"])
+        sd[f"{prefix}.net.{j}.bias"] = params[name]["bias"]
+
+
+def from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any]
+             ) -> "OrderedDict[str, torch.Tensor]":
+    """Reference trees {'encoder', 'depth', 'pose_encoder', 'pose'} ->
+    a ModelBundle state_dict (float32 CPU tensors)."""
+    sd: Dict[str, Any] = OrderedDict()
+    _resnet(sd, "encoder", params["encoder"], batch_stats["encoder"])
+    _depth(sd, "depth", params["depth"], batch_stats["depth"])
+    _resnet(sd, "pose_encoder", params["pose_encoder"],
+            batch_stats["pose_encoder"])
+    _pose(sd, "pose", params["pose"])
+    return OrderedDict((k, torch.tensor(np.array(v))) for k, v in sd.items())

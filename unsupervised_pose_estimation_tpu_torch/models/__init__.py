@@ -1,0 +1,6 @@
+"""Networks of the port (NCHW ``nn.Module``s in the reference ``.pth``
+state_dict layout)."""
+
+from .depth_decoder import DepthDecoder  # noqa: F401
+from .pose_decoder import PoseDecoder  # noqa: F401
+from .resnet import ResnetEncoder  # noqa: F401
