@@ -9,15 +9,21 @@ Phases, each timed on its own line:
    name and power limit, TF32 off;
 1. the build of every CUDA kernel of the port (one nvcc call);
 2. each kernel against its plain PyTorch version on the card, at the
-   validation step's shapes (B=12, C=3, 192x640), on a small-motion grid
-   and on a wild grid that reaches the borders, with its time beside the
-   plain version's, the card's bound and, for the warp, F.grid_sample's;
+   step's shapes (B=12, C=3, 192x640), on a small-motion grid and on a wild
+   grid that reaches the borders, with its time beside the plain
+   version's, the card's bound and, for the warp, F.grid_sample's: the
+   forward kernels K1, K3, K5 and the backward kernels K2, K4;
 3. the validation step at batch 12, 640x192, random weights from a seed,
    with and without the warped images, with the kernel launches it makes,
    after a check of the card's validation and inference steps against the
    CPU's on the same weights and inputs at a small size;
 4. depth serving: 16 requests from 4 threads through MicroBatcher into an
-   InferenceEngine with max_batch=8.
+   InferenceEngine with max_batch=8;
+5. the training step (forward, loss, backward, Adam) at batch 12, 640x192,
+   three steps with the fused warp + loss kernels (K1/K2) and three with
+   the warp and loss kernels (K5, K3/K4), with the kernel launches of each
+   step, after a check of two training steps on the card against the CPU's
+   on the same weights, noise and augmentation at a small size.
 
 It prints one JSON line of kernel records, then, as its last line, the
 device record. Any failure ends it with a non-zero exit code; without a
@@ -59,6 +65,22 @@ KERNELS = {
         replaces="unsupervised_pose_estimation_tpu/ops/pallas/"
                  "warp_kernel.py:606",
         flops_per_pixel=12 * C + 10),
+    # SSIM/L1 adjoint: 115 per channel for the moments and coefficient
+    # planes, 9 per adjoint plane (3 here), 10 to combine, 4 to contract
+    "warp_reproj_loss_bwd": dict(
+        source="unsupervised_pose_estimation_tpu_torch/csrc/"
+               "warp_loss_bwd.cu",
+        replaces="unsupervised_pose_estimation_tpu/ops/pallas/"
+                 "warp_loss.py:252",
+        flops_per_pixel=156 * C),
+    # 122 for the moments and the four coefficient planes, 36 for their
+    # adjoints, 17 to combine both gradients
+    "reproj_loss_bwd": dict(
+        source="unsupervised_pose_estimation_tpu_torch/csrc/"
+               "reproj_loss_bwd.cu",
+        replaces="unsupervised_pose_estimation_tpu/ops/pallas/"
+                 "reproj_loss.py:97",
+        flops_per_pixel=175 * C),
 }
 
 
@@ -143,10 +165,13 @@ def phase_kernels():
     records = {}
 
     def compare(name, got, want, label):
+        """Max abs error; held at TOL, times the largest value where that
+        exceeds 1 (the gradients)."""
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        ok = err <= TOL and all(bool(torch.isfinite(g).all()) for g in got)
-        print(f"  {name:17s} {label:6s} max_abs_err {err:.3e} "
-              f"(tol {TOL:.0e}) {'ok' if ok else 'FAIL'}", flush=True)
+        tol = TOL * max([1.0] + [float(w.abs().max()) for w in want])
+        ok = err <= tol and all(bool(torch.isfinite(g).all()) for g in got)
+        print(f"  {name:20s} {label:6s} max_abs_err {err:.3e} "
+              f"(tol {tol:.1e}) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on the {label} grid: {err}")
@@ -198,10 +223,41 @@ def phase_kernels():
         library_ms=None,
         bytes=nbytes(src, small, target, loss))
 
+    # K2: backward of K1 from its residual planes and an upstream gradient
+    g_up = torch.rand((B, H, W), generator=gen).to("cuda")
+    errs = []
+    for g, label in ((small, "small"), (wild, "wild")):
+        _, warped, ddx, ddy = K.warp_reproj_loss(src, g, target, True)
+        args = (warped, target, ddx, ddy, g_up)
+        errs.append(compare("warp_reproj_loss_bwd",
+                            K.warp_reproj_loss_bwd(*args),
+                            K.warp_reproj_loss_bwd_plain(*args), label))
+    _, warped, ddx, ddy = K.warp_reproj_loss(src, small, target, True)
+    args = (warped, target, ddx, ddy, g_up)
+    records["warp_reproj_loss_bwd"] = dict(
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda: K.warp_reproj_loss_bwd(*args)),
+        plain_ms=cuda_ms(lambda: K.warp_reproj_loss_bwd_plain(*args)),
+        library_ms=None,
+        bytes=nbytes(*args, *K.warp_reproj_loss_bwd(*args)))
+
+    # K4: backward of K3 wrt both images
+    errs = [compare("reproj_loss_bwd", K.reproj_loss_bwd(p, target, g_up),
+                    K.reproj_loss_bwd_plain(p, target, g_up), label)
+            for p, label in ((warped, "small"),
+                             (K.warp(src, wild)[0], "wild"))]
+    args = (warped, target, g_up)
+    records["reproj_loss_bwd"] = dict(
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda: K.reproj_loss_bwd(*args)),
+        plain_ms=cuda_ms(lambda: K.reproj_loss_bwd_plain(*args)),
+        library_ms=None,
+        bytes=nbytes(*args, *K.reproj_loss_bwd(*args)))
+
     for name, rec in records.items():
         rec["bound_ms"], rec["bound_by"] = bound(name, rec.pop("bytes"))
         lib = rec["library_ms"]
-        print(f"  {name:17s} kernel {rec['ms']:.4f} ms  plain "
+        print(f"  {name:20s} kernel {rec['ms']:.4f} ms  plain "
               f"{rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']})  library "
               f"{'-' if lib is None else f'{lib:.4f} ms'}", flush=True)
@@ -291,8 +347,9 @@ def phase_eval_step(device="cuda"):
     bundle = ModelBundle.create(opt, seed=0, device=device)
     gen = torch.Generator().manual_seed(1)
     batch = smoke_batch(gen, device)
-    expect = {False: {"warp_reproj_loss": 8, "reproj_loss": 2, "warp": 0},
-              True: {"warp_reproj_loss": 0, "reproj_loss": 10, "warp": 8}}
+    none = {name: 0 for name in KERNELS}
+    expect = {False: {**none, "warp_reproj_loss": 8, "reproj_loss": 2},
+              True: {**none, "reproj_loss": 10, "warp": 8}}
     total = {name: 0 for name in KERNELS}
     for with_images in (False, True):
         step = build_eval_step(bundle, with_images=with_images)
@@ -330,6 +387,224 @@ def phase_eval_step(device="cuda"):
             times.append(time.perf_counter() - start)
         print(f"  with_images={with_images}: steady wall ms "
               f"{sorted(1e3 * t for t in times)}", flush=True)
+    return total
+
+
+# jitter factors [enabled, brightness, contrast, saturation, hue,
+# autocontrast] of the training batches, cycled over the items
+AUG_ROWS = [[1.0, 1.1, 0.9, 1.15, 0.05, 1.0], [1.0, 0.9, 1.1, 0.85, -0.04, 0.0],
+            [0.0, 1.0, 1.0, 1.0, 0.0, 0.0]]
+LR = 1e-4
+
+
+def train_batch(gen, device, b=None, h=None, w=None):
+    """A training batch: smoke_batch's frames and intrinsics, and per-item
+    jitter factors (aug_params) in place of color_aug."""
+    import torch
+
+    batch = smoke_batch(gen, device, b, h, w)
+    del batch["color_aug"]
+    n = batch["color"].shape[0]
+    rows = torch.tensor(AUG_ROWS, dtype=torch.float32)
+    batch["aug_params"] = rows[torch.arange(n) % len(AUG_ROWS)].to(device)
+    return batch
+
+
+def check_train_against_cpu(device):
+    """Two training steps on the card against the same two on the CPU
+    (plain kernel versions), at B=2, 64x128, with the same batch,
+    augmentation and automask noise. Each step starts both sides from the
+    CPU's weights and statistics (each keeps its own Adam moments). The
+    augmented frames must agree exactly (every stage floors onto the 0..255
+    grid). Per step: the losses to 1e-4 relative; every parameter within
+    2 lr after Adam (its first updates are about lr * sign(g), so an
+    element whose gradient is at the level of float32 rounding can move
+    2 lr apart) plus 1e-6 for the rounding of parameters of order 1; the
+    BatchNorm statistics to 2e-5. The gradients: in float32 a ReLU input
+    or a sampling coordinate within rounding of its kink can take the other
+    branch on one side; in the pose network, whose deepest maps hold 32
+    values per channel at this size, one such flip moves a leaf's gradient
+    by percents (on an H100, step 2: 18% of pose.net.0.weight's largest
+    value). So the float32 gradient norm is held to 1e-4 relative at step 1
+    (read 1.1e-5) and 1e-3 at step 2 (1.9e-4, past such a flip), the whole
+    gradient to 5e-2 in L2 (read 1.2e-3 and 2.2e-2), and each parameter's
+    gradient to 1e-10 of its own largest value in float64
+    (``check_networks_float64``, read 3.4e-14)."""
+    import copy
+
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.ops.augment_device import \
+        batch_augment
+    from unsupervised_pose_estimation_tpu_torch.train.bundle import \
+        ModelBundle
+    from unsupervised_pose_estimation_tpu_torch.train.state import \
+        create_train_state
+    from unsupervised_pose_estimation_tpu_torch.train.step import \
+        build_train_step
+
+    b, h, w = 2, 64, 128
+    cpu = ModelBundle.create(smoke_options(b, h, w), seed=3, device="cpu")
+    card = copy.deepcopy(cpu).to(device)
+    runs = [(x, create_train_state(x), build_train_step(x))
+            for x in (cpu, card)]
+    gen = torch.Generator().manual_seed(5)
+    batch = train_batch(gen, "cpu", b, h, w)
+    aug_err = float((batch_augment(batch["color"].to(device),
+                                   batch["aug_params"].to(device)).cpu()
+                     - batch_augment(batch["color"], batch["aug_params"])
+                     ).abs().max())
+    print(f"  augmentation, card vs CPU: max abs error {aug_err:.3e} "
+          f"(tol 0)", flush=True)
+    if aug_err != 0.0:
+        raise AssertionError("batch_augment on the card differs from the "
+                             "CPU")
+    names = [n for n, _ in cpu.named_parameters()]
+    for k in range(2):
+        card.load_state_dict(cpu.state_dict())
+        noise = {s: torch.randn((b, h, w, 2), generator=gen) * 1e-5
+                 for s in range(4)}
+        want = runs[0][2](runs[0][1], batch, noise=noise)
+        got = runs[1][2](runs[1][1], {n: v.to(device)
+                                      for n, v in batch.items()},
+                         noise={s: v.to(device) for s, v in noise.items()})
+        rel = {n: abs(float(got[n]) - float(v)) / abs(float(v))
+               for n, v in want.items()}
+        worst = max((n for n in rel if n != "grad_norm"), key=rel.get)
+        card_grads = dict(card.named_parameters())
+        grad_l2 = math.sqrt(sum(
+            float(((card_grads[n].grad.cpu() - p.grad).double() ** 2).sum())
+            for n, p in cpu.named_parameters()) / sum(
+            float((p.grad.double() ** 2).sum()) for p in cpu.parameters()))
+        cpu_sd, card_sd = cpu.state_dict(), card.state_dict()
+        diff = torch.cat([(card_sd[n].cpu() - cpu_sd[n]).abs().flatten()
+                          for n in names])
+        stats = max(float((card_sd[n].cpu() - cpu_sd[n]).abs().max())
+                    for n in cpu_sd if "running" in n)
+        norm_tol = 1e-4 if k == 0 else 1e-3
+        print(f"  card vs CPU, step {k + 1}: losses worst relative error "
+              f"{rel[worst]:.3e} ({worst}; tol 1e-4), grad_norm "
+              f"{rel['grad_norm']:.3e} (tol {norm_tol:g}), gradient L2 "
+              f"{grad_l2:.3e} (tol 5e-2), parameters max "
+              f"{float(diff.max()) / LR:.3f} lr (tol 2 lr), statistics "
+              f"{stats:.3e} (tol 2e-5)", flush=True)
+        if not (rel[worst] <= 1e-4 and rel["grad_norm"] <= norm_tol
+                and grad_l2 <= 5e-2
+                and float(diff.max()) <= 2 * LR + 1e-6 and stats <= 2e-5):
+            raise AssertionError(f"training step {k + 1} on the card "
+                                 "disagrees with the CPU")
+    check_networks_float64(cpu, device, batch_augment(
+        batch["color"], batch["aug_params"]))
+
+
+def check_networks_float64(bundle, device, aug):
+    """The depth and pose networks in float64, train mode, on the card and
+    on the CPU, under the same seeded cotangents on the disparities and
+    poses: every parameter's gradient to 1e-10 of its own largest value,
+    the running statistics to 1e-12."""
+    import copy
+
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.train.step import \
+        predict_poses
+
+    frames = {f: aug[:, i].permute(0, 3, 1, 2).double()
+              for i, f in enumerate(bundle.cfg.frame_ids)}
+    gen = torch.Generator().manual_seed(9)
+    cot = None
+    grads, stats = [], []
+    for dev in ("cpu", device):
+        net = copy.deepcopy(bundle).double().to(dev).train(True)
+        net.zero_grad(set_to_none=True)
+        disps = net.depth(net.encoder(frames[0].to(dev)))
+        poses = predict_poses(net, {f: x.to(dev) for f, x in frames.items()})
+        outs = [*disps.values(), *poses.values()]
+        if cot is None:
+            cot = [torch.randn(o.shape, generator=gen, dtype=torch.float64)
+                   for o in outs]
+        sum((o * c.to(dev)).sum() for o, c in zip(outs, cot)).backward()
+        grads.append({n: p.grad.cpu() for n, p in net.named_parameters()})
+        stats.append({n: t.cpu() for n, t in net.state_dict().items()
+                      if "running" in n})
+    worst = max((float((grads[1][n] - g).abs().max())
+                 / float(g.abs().max()), n) for n, g in grads[0].items())
+    stat_err = max(float((stats[1][n] - t).abs().max())
+                   for n, t in stats[0].items())
+    print(f"  networks in float64, card vs CPU: gradients worst "
+          f"{worst[0]:.3e} of the leaf's largest ({worst[1]}; tol 1e-10), "
+          f"statistics {stat_err:.3e} (tol 1e-12)", flush=True)
+    if not (worst[0] <= 1e-10 and stat_err <= 1e-12):
+        raise AssertionError("float64 network gradients on the card "
+                             "disagree with the CPU")
+
+
+@phase("train_step")
+def phase_train_step(device="cuda"):
+    """Three training steps in each warp + loss mode on one bundle; asserts
+    finite losses, changed parameters and each step's kernel launches;
+    -> launches of the whole phase."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+    from unsupervised_pose_estimation_tpu_torch.train.bundle import \
+        ModelBundle
+    from unsupervised_pose_estimation_tpu_torch.train.state import \
+        create_train_state
+    from unsupervised_pose_estimation_tpu_torch.train.step import \
+        build_train_step
+
+    check_train_against_cpu(device)
+    bundle = ModelBundle.create(smoke_options(), seed=0, device=device)
+    state = create_train_state(bundle)
+    step = build_train_step(bundle)
+    batch = train_batch(torch.Generator().manual_seed(6), device)
+    none = {name: 0 for name in KERNELS}
+    expect = {True: {**none, "warp_reproj_loss": 8, "warp_reproj_loss_bwd": 8,
+                     "reproj_loss": 2},
+              False: {**none, "warp": 8, "reproj_loss": 10,
+                      "reproj_loss_bwd": 8}}
+    watched = [bundle.encoder.encoder.conv1.weight, bundle.depth.bn[0].bias,
+               bundle.pose_encoder.encoder.conv1.weight,
+               bundle.pose.net[3].bias]
+    total = dict(none)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for fused in (True, False):
+        bundle.cfg.use_pallas_warp_loss = fused
+        times = []
+        for _ in range(3):
+            before = [p.detach().clone() for p in watched]
+            K.reset_counts()
+            start = time.perf_counter()
+            losses = step(state, batch)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+            launches = K.counts()
+            values = {k: float(v) for k, v in losses.items()}
+            bad = [k for k, v in values.items() if not math.isfinite(v)]
+            if bad:
+                raise AssertionError(f"non-finite losses {bad}")
+            if launches != expect[fused]:
+                raise AssertionError(f"fused={fused}: launches {launches}, "
+                                     f"expected {expect[fused]}")
+            if any(torch.equal(b, p) for b, p in zip(before, watched)):
+                raise AssertionError("a training step left parameters as "
+                                     "they were")
+            for name in total:
+                total[name] += launches[name]
+            print(f"  fused={fused} step {state.step}: "
+                  f"{1e3 * times[-1]:.1f} ms, loss {values['loss']:.6f}, "
+                  f"grad_norm {values['grad_norm']:.6f}, launches "
+                  f"{launches}", flush=True)
+        # steady state: the first step includes cuDNN's algorithm choice
+        print(f"  fused={fused}: steady wall ms per step "
+              f"{[round(1e3 * t, 3) for t in times[1:]]}", flush=True)
+    if device == "cuda":
+        print(f"  peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
     return total
 
 
@@ -415,6 +690,8 @@ def main() -> int:
     K.reset_counts()
     phase_serve()
     for name, n in K.counts().items():
+        launches[name] += n
+    for name, n in phase_train_step().items():
         launches[name] += n
     missing = [name for name, n in launches.items() if n == 0]
     if missing:

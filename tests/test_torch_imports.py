@@ -49,3 +49,14 @@ def test_chip_smoke_fails_fast_without_a_card():
                           timeout=60)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_training_modules_are_among_those_checked():
+    """The training slice's modules are imported, JAX-free, above."""
+    modules = set(port_modules())
+    for name in ("ops.augment_device", "train.state", "train.step",
+                 "ops.kernels.warp_loss", "ops.kernels.reproj_loss",
+                 "ops.kernels.warp", "models.layers"):
+        assert f"{port.__name__}.{name}" in modules, name
+    sources = {p.name for p in (ROOT / port.__name__ / "csrc").glob("*.cu")}
+    assert {"warp_loss_bwd.cu", "reproj_loss_bwd.cu"} <= sources

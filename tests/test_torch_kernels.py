@@ -147,7 +147,8 @@ def test_wrappers_run_the_plain_versions_on_cpu_without_counting():
              K.warp_reproj_loss_plain(src, grid, target, True))]:
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert K.counts() == {"warp_reproj_loss": 0, "reproj_loss": 0,
-                          "warp": 0}
+                          "warp": 0, "warp_reproj_loss_bwd": 0,
+                          "reproj_loss_bwd": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

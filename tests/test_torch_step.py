@@ -30,6 +30,8 @@ from unsupervised_pose_estimation_tpu_torch.serve import (InferenceEngine,
                                                            MicroBatcher)
 from unsupervised_pose_estimation_tpu_torch.train import step as tstep
 from unsupervised_pose_estimation_tpu_torch.train.bundle import ModelBundle
+from unsupervised_pose_estimation_tpu_torch.train.state import \
+    create_train_state
 
 B, H, W = 2, 64, 128
 KEY = jax.random.PRNGKey(3)
@@ -134,8 +136,8 @@ def test_eval_step_losses_match(setup, with_images):
 def test_eval_step_routes_through_the_kernel_wrappers(setup, monkeypatch):
     """The launches chip_smoke.py asserts on the card: with_images=False
     runs K1 eight times and K3 twice; with_images=True K5 eight times and
-    K3 ten times."""
-    calls = {"warp_reproj_loss": 0, "reproj_loss": 0, "warp": 0}
+    K3 ten times (the step calls the kernels through their ops)."""
+    calls = {"warp_reproj_loss_op": 0, "reproj_loss_op": 0, "warp_op": 0}
 
     def counted(name, fn):
         def run(*args, **kwargs):
@@ -164,12 +166,19 @@ def test_eval_step_draws_noise_from_a_generator(setup):
 
 
 def test_training_inputs_raise(setup):
+    """Training is ported; the warped images stay evaluation-only, and the
+    microbatches of gradient accumulation must split the batch."""
     batch = to_torch(setup["batch"])
-    with pytest.raises(NotImplementedError):
-        tstep.forward_and_loss(setup["port"], batch, train=True)
-    with pytest.raises(NotImplementedError):
-        tstep.build_eval_step(setup["port"])(
-            {**batch, "aug_params": torch.zeros(B, 3, 6)})
+    with pytest.raises(ValueError, match="evaluation only"):
+        tstep.forward_and_loss(setup["port"], batch, train=True,
+                               with_images=True)
+    setup["port"].eval()
+    cfg = Options(height=H, width=W, batch_size=B, compute_dtype="float32",
+                  grad_accum=3)
+    bundle = ModelBundle.create(cfg, device="cpu")
+    state = create_train_state(bundle)
+    with pytest.raises(ValueError, match="grad_accum"):
+        tstep.build_train_step(bundle)(state, batch)
 
 
 def test_infer_step_matches(setup):

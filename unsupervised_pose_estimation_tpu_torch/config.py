@@ -3,8 +3,11 @@
 Same field names and defaults as ``unsupervised_pose_estimation_tpu/
 config.py::Options``, so a config written by either package loads in the
 other (``to_json`` / ``from_json``). The TPU knobs (``use_pallas_*``,
-``pallas_*``, ``mesh_*``) are accepted and ignored: the port always runs its
-CUDA kernels on a CUDA device and their plain PyTorch versions on the CPU.
+``pallas_*``, ``mesh_*``) are accepted and ignored, except
+``use_pallas_warp_loss``, which picks the fused warp + loss kernels (K1/K2)
+over the warp and loss kernels (K5, K3/K4) as in the reference. The port
+always runs its CUDA kernels on a CUDA device and their plain PyTorch
+versions on the CPU.
 """
 
 from __future__ import annotations
@@ -119,7 +122,7 @@ class Options:
     use_pallas_warp: bool = True        # ignored
     pallas_warp_interpret: bool = False  # ignored
     pallas_warp_version: int = 8        # ignored
-    use_pallas_warp_loss: bool = True   # ignored
+    use_pallas_warp_loss: bool = True   # fused K1 + K2, else K5 + K3/K4
     log_images: bool = False
     steps_per_epoch: Optional[int] = None
     wandb: bool = False

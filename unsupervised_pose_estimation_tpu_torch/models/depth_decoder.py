@@ -17,7 +17,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 from torch import nn
 
-from .layers import Conv3x3, ConvBlock, Deconv2x
+from .layers import BatchNorm2d, Conv3x3, ConvBlock, Deconv2x
 
 NUM_CH_DEC = (16, 32, 64, 128, 256)
 
@@ -37,7 +37,7 @@ class DepthDecoder(nn.Module):
         for s in self.scales:
             mods.append(Conv3x3(NUM_CH_DEC[s], num_output_channels))
         self.decoder = nn.ModuleList(mods)
-        self.bn = nn.ModuleList(nn.BatchNorm2d(c) for c in NUM_CH_DEC)
+        self.bn = nn.ModuleList(BatchNorm2d(c) for c in NUM_CH_DEC)
 
     def forward(self, features) -> Dict[int, torch.Tensor]:
         """features: the encoder pyramid (NCHW) -> {scale: (B, 1, h, w)

@@ -1,5 +1,5 @@
-"""Decoder building blocks: reflect-padded 3x3 conv, conv + ELU, and the
-fork's 2x transposed conv.
+"""Building blocks: reflect-padded 3x3 conv, conv + ELU, the fork's 2x
+transposed conv, and BatchNorm with flax's train-mode semantics.
 
 Port of ``unsupervised_pose_estimation_tpu/models/layers.py`` in its plain
 layout; the TPU's packed (space-to-depth) forms of the same parameters are
@@ -36,6 +36,27 @@ class ConvBlock(nn.Module):
 
     def forward(self, x):
         return F.elu(self.conv(x))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` as the reference's flax ``nn.BatchNorm(momentum=
+    0.9, epsilon=1e-5)`` trains: it normalises with the biased batch
+    variance (as torch does) and also updates ``running_var`` with it (torch
+    uses the unbiased one there). In eval mode it is ``nn.BatchNorm2d``.
+    Parameters and buffers keep ``nn.BatchNorm2d``'s names."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        out = F.batch_norm(x, None, None, self.weight, self.bias,
+                           training=True, eps=self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            m = self.momentum
+            self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1.0 - m) * self.running_var + m * var)
+            self.num_batches_tracked.add_(1)
+        return out
 
 
 def Deconv2x(channels: int) -> nn.ConvTranspose2d:

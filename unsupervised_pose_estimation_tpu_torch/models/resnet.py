@@ -5,12 +5,15 @@ Port of ``unsupervised_pose_estimation_tpu/models/resnet.py``: ResNet-18 to
 the multi-image variant whose first conv takes ``num_input_images`` stacked
 RGB frames (the pose encoder). Weights sit under ``encoder.`` in
 torchvision's layout, as the reference ``.pth`` files store them. Inputs are
-NCHW in [0, 1], not ImageNet-normalised (as in the reference).
+NCHW in [0, 1], not ImageNet-normalised (as in the reference). BatchNorm
+trains with flax's semantics (``layers.BatchNorm2d``).
 """
 
 from __future__ import annotations
 
 from torch import nn
+
+from .layers import BatchNorm2d
 
 STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
                 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
@@ -28,16 +31,16 @@ def _downsample(cin, cout, stride):
     if stride == 1 and cin == cout:
         return None
     return nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False),
-                         nn.BatchNorm2d(cout))
+                         BatchNorm2d(cout))
 
 
 class BasicBlock(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(cout)
+        self.bn1 = BatchNorm2d(cout)
         self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(cout)
+        self.bn2 = BatchNorm2d(cout)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = _downsample(cin, cout, stride)
 
@@ -52,11 +55,11 @@ class Bottleneck(nn.Module):
         super().__init__()
         inner = cout // 4
         self.conv1 = nn.Conv2d(cin, inner, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(inner)
+        self.bn1 = BatchNorm2d(inner)
         self.conv2 = nn.Conv2d(inner, inner, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(inner)
+        self.bn2 = BatchNorm2d(inner)
         self.conv3 = nn.Conv2d(inner, cout, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(cout)
+        self.bn3 = BatchNorm2d(cout)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = _downsample(cin, cout, stride)
 
@@ -75,7 +78,7 @@ class _ResNet(nn.Module):
                              "layers")
         block = Bottleneck if num_layers in BOTTLENECK_DEPTHS else BasicBlock
         self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         widths = encoder_channels(num_layers)

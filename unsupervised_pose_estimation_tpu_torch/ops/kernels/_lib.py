@@ -37,11 +37,15 @@ SIGNATURES = {
     "upe_warp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "upe_reproj_loss": [_P, _P, _P, _I, _I, _I, _I, _P],
     "upe_warp_reproj_loss": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "upe_warp_reproj_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _P],
+    "upe_reproj_loss_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 # Launches per kernel since the last reset_counts(); a wrapper adds one
 # where it launches its kernel and nowhere else.
-LAUNCHES = {"warp_reproj_loss": 0, "reproj_loss": 0, "warp": 0}
+LAUNCHES = {"warp_reproj_loss": 0, "reproj_loss": 0, "warp": 0,
+            "warp_reproj_loss_bwd": 0, "reproj_loss_bwd": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -146,15 +150,18 @@ def stream_of(t) -> int:
 
 def on_cuda(name: str, *tensors) -> bool:
     """True if every tensor is on one CUDA device, False if every one is on
-    the CPU; raises on a mix, on inputs that require grad (the kernels have
-    no backward yet) and on non-contiguous inputs."""
+    the CPU; raises on a mix, on non-contiguous inputs and on inputs that
+    require grad while grad mode is on: gradients go through the
+    ``torch.autograd.Function`` of each op (``*_op``), whose forward runs
+    with grad mode off."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs on several devices {devices}")
-    if any(t.requires_grad for t in tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name}: no backward kernel yet; call it on tensors that do "
-            "not require grad")
+            f"{name}: the kernel wrapper records no gradient; differentiate "
+            "through the op's autograd Function (ops.kernels.*_op), or call "
+            "it under torch.no_grad()")
     device = devices.pop()
     if device.type == "cpu":
         return False

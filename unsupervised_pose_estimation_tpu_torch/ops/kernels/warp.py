@@ -4,14 +4,17 @@ CUDA kernel: ``csrc/warp.cu``. It replaces the TPU kernel
 ``unsupervised_pose_estimation_tpu/ops/pallas/warp_kernel.py::
 _warp_lerp_kernel_v8`` and the corner-fetch rungs that back it up under
 large motion. On an H100 it is bound by bytes: 69.3 MB at B=12, C=3,
-192x640, 20.7 us at 3.35 TB/s.
+192x640, 20.7 us at 3.35 TB/s. ``warp_op`` is the differentiable warp: K5
+forward, and a backward in plain PyTorch that contracts the upstream
+gradient with the ddx / ddy planes, as the JAX package's XLA backward of
+K5 does (it has no backward kernel to port).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..warp import corners, unnormalize
+from ..warp import corners, grid_cotangent, unnormalize
 from . import _lib
 
 INV255 = 1.0 / 255.0
@@ -68,3 +71,29 @@ def warp(image, grid):
                     warped.data_ptr(), ddx.data_ptr(), ddy.data_ptr(),
                     b, h, w, c, _lib.stream_of(image))
     return warped, ddx, ddy
+
+
+class Warp(torch.autograd.Function):
+    """K5 forward; backward gx = sum_c g * ddx, gy = sum_c g * ddy, then
+    through the coordinate clamp to the grid. The image gets no gradient
+    (the JAX package's ``_sample_planar`` custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, image, grid):
+        warped, ddx, ddy = warp(image, grid)
+        ctx.save_for_backward(grid, ddx, ddy)
+        ctx.mark_non_differentiable(ddx, ddy)
+        return warped, ddx, ddy
+
+    @staticmethod
+    def backward(ctx, grad, _grad_ddx, _grad_ddy):
+        grid, ddx, ddy = ctx.saved_tensors
+        gx = torch.sum(grad * ddx, dim=1)
+        gy = torch.sum(grad * ddy, dim=1)
+        return None, grid_cotangent(grid, gx, gy)
+
+
+def warp_op(image, grid):
+    """Differentiable :func:`warp` (gradient to the grid only): K5
+    forward, a plain-torch backward."""
+    return Warp.apply(image, grid)

@@ -87,7 +87,7 @@ def min_reprojection(reproj, identity_reproj, noise=None, generator=None,
     if identity_reproj is None:
         if reproj.shape[-1] == 1:
             return reproj[..., 0], None
-        return torch.min(reproj, dim=-1).values, None
+        return torch.amin(reproj, dim=-1), None
     if avg_reprojection:
         identity_reproj = torch.mean(identity_reproj, dim=-1, keepdim=True)
     if noise is None:
@@ -95,6 +95,9 @@ def min_reprojection(reproj, identity_reproj, noise=None, generator=None,
                             device=identity_reproj.device) * 1e-5
     identity_reproj = identity_reproj + noise
     combined = torch.cat([identity_reproj, reproj], dim=-1)
-    to_optimise, idxs = torch.min(combined, dim=-1)
+    # amin splits a tie's gradient evenly, as jnp.min does (torch.min's
+    # values send all of it to one index); argmin picks the automask
+    to_optimise = torch.amin(combined, dim=-1)
+    idxs = torch.argmin(combined, dim=-1)
     automask = (idxs > identity_reproj.shape[-1] - 1).to(reproj.dtype)
     return to_optimise, automask

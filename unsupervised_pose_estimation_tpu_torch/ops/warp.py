@@ -13,11 +13,39 @@ from __future__ import annotations
 import torch
 
 
+def _clip(u, hi: float):
+    """clip(u, 0, hi) as ``jnp.clip`` differentiates it: gradient 1 inside,
+    0 outside and 0.5 exactly at a bound (``torch.clamp`` gives 1 there)."""
+    lo_t = torch.zeros((), dtype=u.dtype, device=u.device)
+    hi_t = torch.full((), hi, dtype=u.dtype, device=u.device)
+    return torch.minimum(torch.maximum(u, lo_t), hi_t)
+
+
+def clip_grad(u, hi: float):
+    """d clip(u, 0, hi) / du with :func:`_clip`'s convention, for the
+    kernels' hand-written backward passes."""
+    inside = ((u > 0.0) & (u < hi)).to(u.dtype)
+    bound = ((u == 0.0) | (u == hi)).to(u.dtype)
+    return inside + 0.5 * bound
+
+
 def unnormalize(grid_x, grid_y, height: int, width: int):
     """[-1, 1] coordinates -> clamped pixel coordinates (x, y)."""
-    x = torch.clamp((grid_x + 1.0) * 0.5 * (width - 1), 0.0, width - 1)
-    y = torch.clamp((grid_y + 1.0) * 0.5 * (height - 1), 0.0, height - 1)
+    x = _clip((grid_x + 1.0) * 0.5 * (width - 1), width - 1)
+    y = _clip((grid_y + 1.0) * 0.5 * (height - 1), height - 1)
     return x, y
+
+
+def grid_cotangent(grid, gx, gy):
+    """Cotangent of the planar [-1, 1] grid (B, 2, H, W) from the
+    cotangents gx, gy (B, H, W) of the clamped pixel coordinates, as JAX's
+    autodiff of ``unnormalize`` gives it."""
+    _, _, h, w = grid.shape
+    out = []
+    for g, coord, n in ((gx, grid[:, 0], w), (gy, grid[:, 1], h)):
+        u = (coord + 1.0) * 0.5 * (n - 1)
+        out.append(g * clip_grad(u, n - 1) * (0.5 * (n - 1)))
+    return torch.stack(out, 1)
 
 
 def corners(image, x, y):

@@ -1,21 +1,27 @@
-"""Where the time of the validation step and of a serving batch goes, on a
-CUDA card.
+"""Where the time of the validation step, a serving batch and the training
+step goes, on a CUDA card.
 
     python -m unsupervised_pose_estimation_tpu_torch.profile_step
+    python -m unsupervised_pose_estimation_tpu_torch.profile_step --train
 
-Runs the validation step (both ``with_images`` modes) at batch 12 and the
-inference step at batch 8, at 640x192 with random weights from a seed,
-warms each up, then traces ``STEPS`` calls with ``torch.profiler`` and
-prints, per call: wall time (host clock around work that ends in a
-synchronize), device busy time (the sum of kernel times), the idle share
-(1 - busy / wall), the kernels that take the most device time, and the
-convolution and matmul operators (with input shapes) that launched the
-most. One JSON line per workload.
+Without ``--train`` it runs the validation step (both ``with_images``
+modes) at batch 12 and the inference step at batch 8; with ``--train``, the
+training step (forward, loss, backward, Adam) at batch 12 with the fused
+warp + loss kernels and with the unfused ones. All at 640x192 with random
+weights from a seed. It warms each up, then traces ``STEPS`` calls with
+``torch.profiler`` and prints, per call: wall time (host clock around work
+that ends in a synchronize), device busy time (the sum of kernel times),
+the idle share (1 - busy / wall), the kernels that take the most device
+time, and the convolution and matmul operators (with input shapes) that
+launched the most. One JSON line per workload, after a line with the
+card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import subprocess
 import time
 
 import torch
@@ -23,7 +29,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from .config import Options
 from .train.bundle import ModelBundle
-from .train.step import build_eval_step, build_infer_step
+from .train.state import create_train_state
+from .train.step import build_eval_step, build_infer_step, build_train_step
 
 B, H, W = 12, 192, 640
 SERVE_BATCH = 8
@@ -41,7 +48,7 @@ def _batch(gen, device):
 
 
 OPS = ("aten::conv2d", "aten::conv_transpose2d", "aten::einsum",
-       "aten::matmul", "aten::bmm")
+       "aten::matmul", "aten::bmm", "aten::convolution_backward")
 
 
 def _device_us(evt):
@@ -91,12 +98,31 @@ def trace(name, fn):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--train", action="store_true",
+                        help="profile the training step instead")
+    args = parser.parse_args()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=30)
+    print(smi.stdout.strip() or smi.stderr.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     opt = Options(height=H, width=W, batch_size=B, compute_dtype="float32")
     bundle = ModelBundle.create(opt, seed=0, device="cuda")
     gen = torch.Generator().manual_seed(1)
     batch = _batch(gen, "cuda")
+    if args.train:
+        del batch["color_aug"]
+        batch["aug_params"] = torch.tensor(
+            [[1.0, 1.1, 0.9, 1.15, 0.05, 1.0]] * B, device="cuda")
+        state = create_train_state(bundle)
+        step = build_train_step(bundle)
+        for fused in (True, False):
+            bundle.cfg.use_pallas_warp_loss = fused
+            trace(f"train_step_b{B}_fused_{fused}",
+                  lambda: step(state, batch))
+        return
     noise = torch.Generator("cuda").manual_seed(2)
     for with_images in (False, True):
         step = build_eval_step(bundle, with_images=with_images)

@@ -1,9 +1,9 @@
 """Model bundle: the networks of one run, with seeded weights.
 
 Port of ``unsupervised_pose_estimation_tpu/train/bundle.py`` for the
-configuration ported so far: ResNet depth encoder, fork depth decoder, and a
-separate ResNet pose encoder over stacked frame pairs with its pose
-decoder. Unlike the reference, parameters and BatchNorm statistics live in
+configuration ported so far, for training and evaluation: ResNet depth
+encoder, fork depth decoder, and a separate ResNet pose encoder over stacked
+frame pairs with its pose decoder, in float32. Unlike the reference, parameters and BatchNorm statistics live in
 the modules; ``state_dict()`` keys are ``encoder.*``, ``depth.*``,
 ``pose_encoder.*`` and ``pose.*`` in the reference ``.pth`` layout
 (``convert.from_jax`` maps the reference package's trees onto them).
@@ -39,7 +39,9 @@ def check_supported(cfg: Options) -> None:
 
 
 class ModelBundle(nn.Module):
-    """encoder + depth decoder + pose encoder + pose decoder, in eval mode."""
+    """encoder + depth decoder + pose encoder + pose decoder. ``create``
+    returns it in eval mode; ``train.step.forward_and_loss`` sets train mode
+    (BatchNorm on batch statistics) or eval mode as its ``train`` says."""
 
     def __init__(self, cfg: Options):
         super().__init__()
