@@ -23,7 +23,16 @@ Phases, each timed on its own line:
    three steps with the fused warp + loss kernels (K1/K2) and three with
    the warp and loss kernels (K5, K3/K4), with the kernel launches of each
    step, after a check of two training steps on the card against the CPU's
-   on the same weights, noise and augmentation at a small size.
+   on the same weights, noise and augmentation at a small size;
+6. the warp ladder of ``pallas_warp_version`` 1-7: the corner-fetch
+   kernels K6 (narrow and wide band, per-block and per-row band starts),
+   K7 and K8 against their plain versions on grids that meet their gates,
+   timed like phase 2; each version's rung on a small-motion grid (its top
+   rung), a vertical wave (wide-band v3) and the wild grid (the gather);
+   one training step at version 6 on the card against the CPU at a small
+   size; then at batch 12, 640x192, one validation step at version 4, one
+   at version 6 and three training steps at version 7, with each step's
+   kernel launches.
 
 It prints one JSON line of kernel records, then, as its last line, the
 device record. Any failure ends it with a non-zero exit code; without a
@@ -81,7 +90,25 @@ KERNELS = {
         replaces="unsupervised_pose_estimation_tpu/ops/pallas/"
                  "reproj_loss.py:97",
         flops_per_pixel=175 * C),
+    # the corner fetches gather and do no arithmetic: bound by their bytes
+    "fetch_corners": dict(
+        source="unsupervised_pose_estimation_tpu_torch/csrc/corners.cu",
+        replaces="unsupervised_pose_estimation_tpu/ops/pallas/"
+                 "warp_kernel.py:43",
+        flops_per_pixel=0),
+    "fetch_corners_packed": dict(
+        source="unsupervised_pose_estimation_tpu_torch/csrc/corners.cu",
+        replaces="unsupervised_pose_estimation_tpu/ops/pallas/"
+                 "warp_kernel.py:450",
+        flops_per_pixel=0),
+    "fetch_corners_packed_v7": dict(
+        source="unsupervised_pose_estimation_tpu_torch/csrc/corners.cu",
+        replaces="unsupervised_pose_estimation_tpu/ops/pallas/"
+                 "warp_kernel.py:529",
+        flops_per_pixel=0),
 }
+CORNER_KERNELS = ("fetch_corners", "fetch_corners_packed",
+                  "fetch_corners_packed_v7")
 
 
 def phase(name):
@@ -410,7 +437,7 @@ def train_batch(gen, device, b=None, h=None, w=None):
     return batch
 
 
-def check_train_against_cpu(device):
+def check_train_against_cpu(device, version=8, steps=2, networks=True):
     """Two training steps on the card against the same two on the CPU
     (plain kernel versions), at B=2, 64x128, with the same batch,
     augmentation and automask noise. Each step starts both sides from the
@@ -429,7 +456,9 @@ def check_train_against_cpu(device):
     (read 1.1e-5) and 1e-3 at step 2 (1.9e-4, past such a flip), the whole
     gradient to 5e-2 in L2 (read 1.2e-3 and 2.2e-2), and each parameter's
     gradient to 1e-10 of its own largest value in float64
-    (``check_networks_float64``, read 3.4e-14)."""
+    (``check_networks_float64``, read 3.4e-14). ``version`` is the warp
+    ladder's (``pallas_warp_version``), ``steps`` how many steps run,
+    ``networks`` whether the float64 network check follows."""
     import copy
 
     import torch
@@ -444,7 +473,9 @@ def check_train_against_cpu(device):
         build_train_step
 
     b, h, w = 2, 64, 128
-    cpu = ModelBundle.create(smoke_options(b, h, w), seed=3, device="cpu")
+    opt = smoke_options(b, h, w)
+    opt.pallas_warp_version = version
+    cpu = ModelBundle.create(opt, seed=3, device="cpu")
     card = copy.deepcopy(cpu).to(device)
     runs = [(x, create_train_state(x), build_train_step(x))
             for x in (cpu, card)]
@@ -460,7 +491,7 @@ def check_train_against_cpu(device):
         raise AssertionError("batch_augment on the card differs from the "
                              "CPU")
     names = [n for n, _ in cpu.named_parameters()]
-    for k in range(2):
+    for k in range(steps):
         card.load_state_dict(cpu.state_dict())
         noise = {s: torch.randn((b, h, w, 2), generator=gen) * 1e-5
                  for s in range(4)}
@@ -482,7 +513,8 @@ def check_train_against_cpu(device):
         stats = max(float((card_sd[n].cpu() - cpu_sd[n]).abs().max())
                     for n in cpu_sd if "running" in n)
         norm_tol = 1e-4 if k == 0 else 1e-3
-        print(f"  card vs CPU, step {k + 1}: losses worst relative error "
+        print(f"  card vs CPU, version {version}, step {k + 1}: losses "
+              f"worst relative error "
               f"{rel[worst]:.3e} ({worst}; tol 1e-4), grad_norm "
               f"{rel['grad_norm']:.3e} (tol {norm_tol:g}), gradient L2 "
               f"{grad_l2:.3e} (tol 5e-2), parameters max "
@@ -493,8 +525,9 @@ def check_train_against_cpu(device):
                 and float(diff.max()) <= 2 * LR + 1e-6 and stats <= 2e-5):
             raise AssertionError(f"training step {k + 1} on the card "
                                  "disagrees with the CPU")
-    check_networks_float64(cpu, device, batch_augment(
-        batch["color"], batch["aug_params"]))
+    if networks:
+        check_networks_float64(cpu, device, batch_augment(
+            batch["color"], batch["aug_params"]))
 
 
 def check_networks_float64(bundle, device, aug):
@@ -657,6 +690,193 @@ def phase_serve(device="cuda"):
           f"{max(float(d.max()) for d in results):.4f}]", flush=True)
 
 
+def wave_grid(device):
+    """The identity grid plus a vertical sinusoid of +-20 rows along x: an
+    8-row block spans ~48 rows, past the 40-row band and inside 72."""
+    import torch
+
+    ys, xs = torch.meshgrid(torch.linspace(-1, 1, H), torch.linspace(-1, 1, W),
+                            indexing="ij")
+    wave = (20.0 * (2.0 / (H - 1))) * torch.sin(
+        torch.linspace(0, 6 * math.pi, W))
+    grid = torch.stack([xs, ys + wave[None]], 0)[None].expand(B, 2, H, W)
+    return grid.contiguous().to(device)
+
+
+def check_corner_kernels(src, small, wave, wild):
+    """K6 (narrow band, wide band, per-row starts), K7 and K8 against their
+    plain versions, on a grid that meets the rung's gate and on the wild
+    grid (where the gate fails and the ladder would not call them, but
+    kernel and plain version still gather the same clamped taps); ->
+    {name: record}."""
+    from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+    from unsupervised_pose_estimation_tpu_torch.ops.kernels.corners import \
+        expand_starts
+    from unsupervised_pose_estimation_tpu_torch.ops.kernels.warp import (
+        frame_planes, ladder, taps)
+
+    planes = frame_planes(src).reshape(B * C, H, W)
+    calls = {}  # name -> (kernel, plain, args) at the main path's shapes
+
+    def inputs(grid, version, rung, gate=True):
+        x0i, y0i, _, _ = taps(grid)
+        rungs = {r[0]: r for r in ladder(version, True, x0i, y0i, H, W)}
+        _, ymin, band, ok = rungs[rung]
+        if gate and not bool(ok):
+            raise AssertionError(f"the grid misses the gate of {rung}")
+        return x0i, y0i - expand_starts(ymin, H, W), ymin, band
+
+    cases = [("fetch_corners", "v4", 4, small, "narrow"),
+             ("fetch_corners", "v3_wide", 3, wave, "wide"),
+             ("fetch_corners", "v2", 2, small, "per-row"),
+             ("fetch_corners_packed", "v6", 6, small, "small"),
+             ("fetch_corners_packed_v7", "v7", 7, small, "small")]
+    errs = {name: 0.0 for name in CORNER_KERNELS}
+    for name, rung, version, grid, label in cases:
+        for g, tag, gate in ((grid, label, True), (wild, label + "/wild",
+                                                    False)):
+            x0i, yl, ymin, band = inputs(g, version, rung, gate)
+            if name == "fetch_corners":
+                args = (planes, x0i, yl, ymin, band)
+                kern, plain = K.fetch_corners, K.fetch_corners_plain
+            elif name == "fetch_corners_packed":
+                args = (src, x0i, yl, ymin, band)
+                kern, plain = (K.fetch_corners_packed,
+                               K.fetch_corners_packed_plain)
+            else:
+                args = (src, x0i, yl, ymin)
+                kern, plain = (K.fetch_corners_packed_v7,
+                               K.fetch_corners_packed_v7_plain)
+            got, want = kern(*args), plain(*args)
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, want))
+            print(f"  {name:24s} {tag:13s} max_abs_err {err:.3e} (tol 0)",
+                  flush=True)
+            if err != 0.0 or any(a.dtype != b.dtype for a, b in zip(got,
+                                                                    want)):
+                raise AssertionError(f"{name} ({tag}) disagrees with its "
+                                     f"plain version: {err}")
+            errs[name] = max(errs[name], err)
+            if gate and name not in calls:
+                calls[name] = (kern, plain, args)
+    records = {}
+    for name, (kern, plain, args) in calls.items():
+        records[name] = rec = dict(
+            max_abs_err=errs[name], ms=cuda_ms(lambda: kern(*args)),
+            plain_ms=cuda_ms(lambda: plain(*args)), library_ms=None)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            name, nbytes(*args[:4], *kern(*args)))
+        print(f"  {name:24s} kernel {rec['ms']:.4f} ms  plain "
+              f"{rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']})", flush=True)
+    return records
+
+
+def check_rungs(src, small, wave, wild):
+    """Versions 1-7 on the small-motion grid (each version's top rung), the
+    wave (wide-band v3; v2 has none and gathers) and the wild grid (the
+    gather); each warp against K5 at 1e-6 (the ladder scales by 1/255
+    before the lerp, K5 after it: a few ulp)."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+
+    with torch.no_grad():
+        k5 = {label: K.warp(src, g)[0] for label, g in
+              (("small", small), ("wave", wave), ("wild", wild))}
+        for version in range(1, 8):
+            chosen = []
+            for label, grid in (("small", small), ("wave", wave),
+                                ("wild", wild)):
+                want = {"small": f"v{version}", "wild": "gather",
+                        "wave": "gather" if version == 2 else "v3_wide"}
+                K.reset_counts()
+                out = K.grid_sample_fast(src, grid, planar_out=True,
+                                         version=version, planar_grid=True)
+                rungs = K.rung_counts()
+                err = float((out - k5[label]).abs().max())
+                chosen.append(f"{label}->{max(rungs, key=rungs.get)} "
+                              f"(vs K5 {err:.1e})")
+                if rungs[want[label]] != 1 or sum(rungs.values()) != 1:
+                    raise AssertionError(f"version {version}, {label} grid: "
+                                         f"rungs {rungs}, expected "
+                                         f"{want[label]}")
+                if not err <= 1e-6:
+                    raise AssertionError(f"version {version}, {label} grid: "
+                                         f"the ladder is {err} from K5")
+            print(f"  version {version}: {', '.join(chosen)}", flush=True)
+
+
+def ladder_launches(launches, rungs, train):
+    """Per step through the ladder: 8 warps, each a corner-fetch launch or
+    a plain gather; 10 x K3 (8 warps + 2 identity terms), 8 x K4 in
+    training; none of K1, K2, K5."""
+    corners = sum(launches[name] for name in CORNER_KERNELS)
+    others = {name: n for name, n in launches.items()
+              if name not in CORNER_KERNELS}
+    want = {name: 0 for name in others}
+    want.update(reproj_loss=10, reproj_loss_bwd=8 if train else 0)
+    if corners + rungs["gather"] != 8 or others != want:
+        raise AssertionError(f"launches {launches}, rungs {rungs}: expected "
+                             f"8 corner fetches or gathers and {want}")
+
+
+@phase("ladder")
+def phase_ladder(device="cuda"):
+    """The corner kernels, the rung choice, a card-vs-CPU training step at
+    version 6, then the validation step at versions 4 and 6 and three
+    training steps at version 7 at batch 12; -> (kernel records, launches
+    of the steps)."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+    from unsupervised_pose_estimation_tpu_torch.train.bundle import \
+        ModelBundle
+    from unsupervised_pose_estimation_tpu_torch.train.state import \
+        create_train_state
+    from unsupervised_pose_estimation_tpu_torch.train.step import (
+        build_eval_step, build_train_step)
+
+    gen = torch.Generator().manual_seed(10)
+    src, _, small, wild = make_inputs(gen, device)
+    wave = wave_grid(device)
+    records = check_corner_kernels(src, small, wave, wild)
+    check_rungs(src, small, wave, wild)
+    check_train_against_cpu(device, version=6, steps=1, networks=False)
+
+    bundle = ModelBundle.create(smoke_options(), seed=0, device=device)
+    total = {name: 0 for name in KERNELS}
+    runs = [("eval", 4), ("eval", 6)] + [("train", 7)] * 3
+    state = create_train_state(bundle)
+    batch = train_batch(torch.Generator().manual_seed(11), device)
+    eval_batch = smoke_batch(torch.Generator().manual_seed(12), device)
+    for kind, version in runs:
+        bundle.cfg.pallas_warp_version = version
+        K.reset_counts()
+        start = time.perf_counter()
+        if kind == "eval":
+            losses, _ = build_eval_step(bundle)(
+                eval_batch, torch.Generator(device).manual_seed(2))
+        else:
+            losses = build_train_step(bundle)(state, batch)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches, rungs = K.counts(), K.rung_counts()
+        values = {k: float(v) for k, v in losses.items()}
+        bad = [k for k, v in values.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite losses {bad}")
+        ladder_launches(launches, rungs, kind == "train")
+        for name in total:
+            total[name] += launches[name]
+        print(f"  {kind} step, version {version}: {1e3 * seconds:.1f} ms, "
+              f"loss {values['loss']:.6f}, rungs "
+              f"{ {k: n for k, n in rungs.items() if n} }, launches "
+              f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+    return records, total
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -692,6 +912,10 @@ def main() -> int:
     for name, n in K.counts().items():
         launches[name] += n
     for name, n in phase_train_step().items():
+        launches[name] += n
+    ladder_records, ladder_total = phase_ladder()
+    records.update(ladder_records)
+    for name, n in ladder_total.items():
         launches[name] += n
     missing = [name for name, n in launches.items() if n == 0]
     if missing:

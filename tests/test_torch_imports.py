@@ -60,3 +60,14 @@ def test_training_modules_are_among_those_checked():
         assert f"{port.__name__}.{name}" in modules, name
     sources = {p.name for p in (ROOT / port.__name__ / "csrc").glob("*.cu")}
     assert {"warp_loss_bwd.cu", "reproj_loss_bwd.cu"} <= sources
+
+
+def test_ladder_modules_are_among_those_checked():
+    """The warp ladder's modules and kernel source are imported, JAX-free,
+    above, and built with the others."""
+    modules = set(port_modules())
+    for name in ("ops.kernels.corners", "ops.kernels.warp", "train.step",
+                 "profile_step"):
+        assert f"{port.__name__}.{name}" in modules, name
+    sources = {p.name for p in (ROOT / port.__name__ / "csrc").glob("*.cu")}
+    assert "corners.cu" in sources

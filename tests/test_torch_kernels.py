@@ -146,9 +146,25 @@ def test_wrappers_run_the_plain_versions_on_cpu_without_counting():
             (K.warp_reproj_loss(src, grid, target, True),
              K.warp_reproj_loss_plain(src, grid, target, True))]:
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+    x0i = torch.zeros((B, H, W), dtype=torch.int32)
+    blocks = torch.zeros((B, H // 8, 1), dtype=torch.int32)
+    planes = target.reshape(B * C, H, W)
+    for got, want in [
+            (K.fetch_corners(planes, x0i, x0i, blocks, 40),
+             K.fetch_corners_plain(planes, x0i, x0i, blocks, 40)),
+            (K.fetch_corners_packed(src, x0i, x0i, blocks[:, ::2], 40),
+             K.fetch_corners_packed_plain(src, x0i, x0i, blocks[:, ::2],
+                                          40)),
+            (K.fetch_corners_packed_v7(src, x0i, x0i, blocks.new_zeros(
+                (B, H, W // 128))),
+             K.fetch_corners_packed_v7_plain(src, x0i, x0i, blocks.new_zeros(
+                 (B, H, W // 128))))]:
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert K.counts() == {"warp_reproj_loss": 0, "reproj_loss": 0,
                           "warp": 0, "warp_reproj_loss_bwd": 0,
-                          "reproj_loss_bwd": 0}
+                          "reproj_loss_bwd": 0, "fetch_corners": 0,
+                          "fetch_corners_packed": 0,
+                          "fetch_corners_packed_v7": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

@@ -5,9 +5,10 @@ config.py::Options``, so a config written by either package loads in the
 other (``to_json`` / ``from_json``). The TPU knobs (``use_pallas_*``,
 ``pallas_*``, ``mesh_*``) are accepted and ignored, except
 ``use_pallas_warp_loss``, which picks the fused warp + loss kernels (K1/K2)
-over the warp and loss kernels (K5, K3/K4) as in the reference. The port
-always runs its CUDA kernels on a CUDA device and their plain PyTorch
-versions on the CPU.
+over the warp and loss kernels (K5, K3/K4) as in the reference, and
+``pallas_warp_version``, which picks the warp's kernel ladder as in the
+reference. The port always runs its CUDA kernels on a CUDA device and
+their plain PyTorch versions on the CPU.
 """
 
 from __future__ import annotations
@@ -121,7 +122,11 @@ class Options:
     pallas_loss_interpret: bool = False  # ignored
     use_pallas_warp: bool = True        # ignored
     pallas_warp_interpret: bool = False  # ignored
-    pallas_warp_version: int = 8        # ignored
+    pallas_warp_version: int = 8  # top rung of the warp ladder: 8 (and
+    # above) K5, with K1/K2 when use_pallas_warp_loss; 1-5 the per-plane
+    # corner fetch K6 (v2: per-row minibands), 6 the channel-packed K7, 7
+    # the miniband K8 (6 and 7 for uint8 frames only), each with the K6
+    # rungs and a plain gather beneath it and the loss in K3/K4
     use_pallas_warp_loss: bool = True   # fused K1 + K2, else K5 + K3/K4
     log_images: bool = False
     steps_per_epoch: Optional[int] = None

@@ -40,12 +40,21 @@ SIGNATURES = {
     "upe_warp_reproj_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _P],
     "upe_reproj_loss_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "upe_fetch_corners": [_P] * 8 + [_I] * 7 + [_P],
+    "upe_fetch_corners_packed": [_P] * 8 + [_I] * 7 + [_P],
 }
 
 # Launches per kernel since the last reset_counts(); a wrapper adds one
 # where it launches its kernel and nowhere else.
 LAUNCHES = {"warp_reproj_loss": 0, "reproj_loss": 0, "warp": 0,
-            "warp_reproj_loss_bwd": 0, "reproj_loss_bwd": 0}
+            "warp_reproj_loss_bwd": 0, "reproj_loss_bwd": 0,
+            "fetch_corners": 0, "fetch_corners_packed": 0,
+            "fetch_corners_packed_v7": 0}
+# Calls of the warp ladder (ops.kernels.warp.sample) since the last
+# reset_counts(), by the rung that ran: the kernel of a version's top rung,
+# one beneath it, or the plain gather at the bottom.
+RUNGS = {"v1": 0, "v2": 0, "v3": 0, "v4": 0, "v5": 0, "v6": 0, "v7": 0,
+         "v3_wide": 0, "v8": 0, "gather": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -126,10 +135,22 @@ def counts() -> dict:
         return dict(LAUNCHES)
 
 
-def reset_counts() -> None:
+def rung_counts() -> dict:
     with _lock:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
+        return dict(RUNGS)
+
+
+def reset_counts() -> None:
+    """Zero the launch counts and the rung counts."""
+    with _lock:
+        for table in (LAUNCHES, RUNGS):
+            for name in table:
+                table[name] = 0
+
+
+def count_rung(name: str) -> None:
+    with _lock:
+        RUNGS[name] += 1
 
 
 def launch(name: str, fn: str, *args) -> None:

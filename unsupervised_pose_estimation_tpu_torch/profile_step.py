@@ -3,12 +3,18 @@ step goes, on a CUDA card.
 
     python -m unsupervised_pose_estimation_tpu_torch.profile_step
     python -m unsupervised_pose_estimation_tpu_torch.profile_step --train
+    python -m unsupervised_pose_estimation_tpu_torch.profile_step --train \
+        --warp-version 7
 
 Without ``--train`` it runs the validation step (both ``with_images``
 modes) at batch 12 and the inference step at batch 8; with ``--train``, the
 training step (forward, loss, backward, Adam) at batch 12 with the fused
-warp + loss kernels and with the unfused ones. All at 640x192 with random
-weights from a seed. It warms each up, then traces ``STEPS`` calls with
+warp + loss kernels and with the unfused ones. ``--warp-version`` 1-7 sets
+``pallas_warp_version``: the warps then go through that version's ladder
+(one unfused mode), and each record also gives the host time spent in the
+ladder's gate reads (``upe::warp_ladder_gates``, one device synchronisation
+per warp) and the rungs that ran. All at 640x192 with random weights from a
+seed. It warms each up, then traces ``STEPS`` calls with
 ``torch.profiler`` and prints, per call: wall time (host clock around work
 that ends in a synchronize), device busy time (the sum of kernel times),
 the idle share (1 - busy / wall), the kernels that take the most device
@@ -28,6 +34,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .config import Options
+from .ops import kernels as K
 from .train.bundle import ModelBundle
 from .train.state import create_train_state
 from .train.step import build_eval_step, build_infer_step, build_train_step
@@ -66,6 +73,7 @@ def trace(name, fn):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    K.reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         start = time.perf_counter()
@@ -73,9 +81,13 @@ def trace(name, fn):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3 / STEPS
-    kernels = [e for e in prof.key_averages()
+    rungs = {k: n // STEPS for k, n in K.rung_counts().items() if n}
+    averages = prof.key_averages()
+    kernels = [e for e in averages
                if e.device_type == torch.autograd.DeviceType.CUDA
                and _device_us(e) > 0]
+    gates = [e for e in averages if e.key == "upe::warp_ladder_gates"
+             and e.device_type == torch.autograd.DeviceType.CPU]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / STEPS
     kernels.sort(key=_device_us, reverse=True)
     # the operators behind the kernels: top-level aten ops with their input
@@ -88,6 +100,9 @@ def trace(name, fn):
         "workload": name, "device": torch.cuda.get_device_name(0),
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
+        "gate_reads": sum(e.count for e in gates) // STEPS,
+        "gate_read_ms": sum(e.cpu_time_total for e in gates) / 1e3 / STEPS,
+        "rungs": rungs,
         "top_kernels": [{"name": e.key[:80], "calls": e.count // STEPS,
                          "ms": _device_us(e) / 1e3 / STEPS}
                         for e in kernels[:TOP]],
@@ -101,6 +116,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--train", action="store_true",
                         help="profile the training step instead")
+    parser.add_argument("--warp-version", type=int, default=8,
+                        help="pallas_warp_version (1-7: the warp ladder)")
     args = parser.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -108,7 +125,9 @@ def main():
     print(smi.stdout.strip() or smi.stderr.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    opt = Options(height=H, width=W, batch_size=B, compute_dtype="float32")
+    opt = Options(height=H, width=W, batch_size=B, compute_dtype="float32",
+                  pallas_warp_version=args.warp_version)
+    tag = "" if args.warp_version >= 8 else f"_warp_v{args.warp_version}"
     bundle = ModelBundle.create(opt, seed=0, device="cuda")
     gen = torch.Generator().manual_seed(1)
     batch = _batch(gen, "cuda")
@@ -118,15 +137,16 @@ def main():
             [[1.0, 1.1, 0.9, 1.15, 0.05, 1.0]] * B, device="cuda")
         state = create_train_state(bundle)
         step = build_train_step(bundle)
-        for fused in (True, False):
+        # below version 8 the loss is never fused: one mode
+        for fused in (True, False) if not tag else (False,):
             bundle.cfg.use_pallas_warp_loss = fused
-            trace(f"train_step_b{B}_fused_{fused}",
+            trace(f"train_step_b{B}_fused_{fused}{tag}",
                   lambda: step(state, batch))
         return
     noise = torch.Generator("cuda").manual_seed(2)
     for with_images in (False, True):
         step = build_eval_step(bundle, with_images=with_images)
-        trace(f"eval_step_b{B}_with_images_{with_images}",
+        trace(f"eval_step_b{B}_with_images_{with_images}{tag}",
               lambda: step(batch, noise))
     infer = build_infer_step(bundle)
     images = batch["color"][:SERVE_BATCH, 0].float() / 255.0

@@ -10,7 +10,11 @@ terms run in the port's kernels. For every scale and source frame: with
 training, its backward (K2); without it, or when the warped images are
 returned, the warp (K5) followed by the SSIM + L1 loss (K3) and, in
 training, K3's backward (K4). The identity (automask) terms run K3 with no
-gradient.
+gradient. With ``pallas_warp_version`` 1-7 every warp goes instead through
+that version's ladder (``ops.kernels.grid_sample_fast``: the corner-fetch
+kernels K6-K8, or a plain gather) where the shape allows it, else through
+the plain ``ops.warp.grid_sample``; the loss is then always K3 and K4, as
+the reference's fused op needs version 8.
 """
 
 from __future__ import annotations
@@ -23,8 +27,11 @@ import torch
 from ..ops import geometry as G
 from ..ops import losses as L
 from ..ops.augment_device import batch_augment
-from ..ops.kernels import reproj_loss_op, warp_op, warp_reproj_loss_op
+from ..ops.kernels import (grid_sample_fast, reproj_loss_op, warp_op,
+                           warp_reproj_loss_op)
+from ..ops.kernels.warp import INV255
 from ..ops.resize import image_pyramid, resize_bilinear
+from ..ops.warp import grid_sample
 from .bundle import ModelBundle
 from .state import TrainState
 
@@ -117,7 +124,19 @@ def forward_and_loss(bundle: ModelBundle, batch, train: bool = False,
             return L.reprojection_loss_planar(pred_p, tgt_p, use_ssim=False)
         return reproj_loss_op(pred_p, tgt_p)
 
-    fused = cfg.use_pallas_warp_loss and not (with_images or cfg.no_ssim)
+    version = cfg.pallas_warp_version
+    ladder = version <= 7
+    fused = cfg.use_pallas_warp_loss and not (with_images or cfg.no_ssim
+                                              or ladder)
+
+    def warp_fn(src, pix):
+        if not ladder:
+            return warp_op(src, pix)[0]
+        if w % 128 == 0 and h % 8 == 0 and h >= 16:
+            return grid_sample_fast(src, pix, planar_out=True,
+                                    version=version, planar_grid=True)
+        return _nchw(grid_sample(src, pix) * INV255)
+
     target_p = _nchw(color[0])
     identity = None
     if not cfg.disable_automasking:
@@ -140,7 +159,7 @@ def forward_and_loss(bundle: ModelBundle, batch, train: bool = False,
             if fused:
                 reprojs.append(warp_reproj_loss_op(raw[f], pix, target_p))
                 continue
-            warped_p = warp_op(raw[f], pix)[0]
+            warped_p = warp_fn(raw[f], pix)
             if with_images:
                 outputs[f"color_pred/{f}/{s}"] = _nhwc(warped_p)
             reprojs.append(reproj_fn(warped_p, target_p))
