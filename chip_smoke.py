@@ -10,9 +10,11 @@ Phases, each timed on its own line:
 1. the build of every CUDA kernel of the port (one nvcc call);
 2. each kernel against its plain PyTorch version on the card, at the
    step's shapes (B=12, C=3, 192x640), on a small-motion grid and on a wild
-   grid that reaches the borders, with its time beside the plain
-   version's, the card's bound and, for the warp, F.grid_sample's: the
-   forward kernels K1, K3, K5 and the backward kernels K2, K4;
+   grid that reaches the borders (K1 and K2 also at B=2, 50x70 and B=1,
+   9x33, where the tiles hang past the image), with its time (warm, and
+   with the L2 flushed before each launch) beside the plain version's, the
+   card's bound and, for the warp, F.grid_sample's: the forward kernels
+   K1, K3, K5 and the backward kernels K2, K4;
 3. the validation step at batch 12, 640x192, random weights from a seed,
    with and without the warped images, with the kernel launches it makes,
    after a check of the card's validation and inference steps against the
@@ -74,14 +76,16 @@ KERNELS = {
         replaces="unsupervised_pose_estimation_tpu/ops/pallas/"
                  "warp_kernel.py:606",
         flops_per_pixel=12 * C + 10),
-    # SSIM/L1 adjoint: 115 per channel for the moments and coefficient
-    # planes, 9 per adjoint plane (3 here), 10 to combine, 4 to contract
+    # the warp rebuilt (lerp and its two gradient planes: 12 per channel,
+    # 10 for the coordinates); SSIM/L1 adjoint: 115 per channel for the
+    # moments and coefficient planes, 9 per adjoint plane (3 here), 10 to
+    # combine, 4 to contract
     "warp_reproj_loss_bwd": dict(
         source="unsupervised_pose_estimation_tpu_torch/csrc/"
                "warp_loss_bwd.cu",
         replaces="unsupervised_pose_estimation_tpu/ops/pallas/"
                  "warp_loss.py:252",
-        flops_per_pixel=156 * C),
+        flops_per_pixel=168 * C + 10),
     # 122 for the moments and the four coefficient planes, 36 for their
     # adjoints, 17 to combine both gradients
     "reproj_loss_bwd": dict(
@@ -141,6 +145,25 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_cold(fn, iters=20, flush_mib=256):
+    """Mean device time of ``fn()`` in ms with a cold L2: a 256 MiB buffer
+    (five times the 50 MB L2) is written before each launch, and each
+    launch is timed by its own pair of CUDA events."""
+    import torch
+
+    flush = torch.empty(flush_mib << 18, dtype=torch.float32, device="cuda")
+    fn()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in pairs:
+        flush.fill_(1.0)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -154,24 +177,26 @@ def bound(name, read_write_bytes):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def make_inputs(gen, device):
-    """Two uint8 frames and two planar grids: small motion (a smooth shift of
-    a few pixels) and wild (uniform over [-1.3, 1.3], so many samples clamp
-    to the border, with the four border lines exactly at -1 and 1)."""
+def make_inputs(gen, device, b=None, h=None, w=None, c=None):
+    """Two uint8 frames and two planar grids (the main path's shapes unless
+    given): small motion (a smooth shift of a few pixels) and wild (uniform
+    over [-1.3, 1.3], so many samples clamp to the border, with the four
+    border lines exactly at -1 and 1)."""
     import torch
 
-    src = torch.randint(0, 256, (B, H, W, C), generator=gen,
+    b, h, w, c = b or B, h or H, w or W, c or C
+    src = torch.randint(0, 256, (b, h, w, c), generator=gen,
                         dtype=torch.uint8).to(device)
-    tgt_u8 = torch.randint(0, 256, (B, H, W, C), generator=gen,
+    tgt_u8 = torch.randint(0, 256, (b, h, w, c), generator=gen,
                            dtype=torch.uint8).to(device)
     target = (tgt_u8.float() / 255.0).permute(0, 3, 1, 2).contiguous()
-    ys, xs = torch.meshgrid(torch.linspace(-1, 1, H), torch.linspace(-1, 1, W),
+    ys, xs = torch.meshgrid(torch.linspace(-1, 1, h), torch.linspace(-1, 1, w),
                             indexing="ij")
-    base = torch.stack([xs, ys], 0)[None].expand(B, 2, H, W)
-    shift = (torch.rand((B, 2, 1, 1), generator=gen) - 0.5) * 0.02
-    jitter = (torch.rand((B, 2, H, W), generator=gen) - 0.5) * 0.004
+    base = torch.stack([xs, ys], 0)[None].expand(b, 2, h, w)
+    shift = (torch.rand((b, 2, 1, 1), generator=gen) - 0.5) * 0.02
+    jitter = (torch.rand((b, 2, h, w), generator=gen) - 0.5) * 0.004
     small = (base + shift + jitter).contiguous().to(device)
-    wild = (torch.rand((B, 2, H, W), generator=gen) * 2.6 - 1.3)
+    wild = (torch.rand((b, 2, h, w), generator=gen) * 2.6 - 1.3)
     wild[:, :, 0, :] = -1.0
     wild[:, :, -1, :] = 1.0
     wild[:, :, :, 0] = -1.0
@@ -197,7 +222,7 @@ def phase_kernels():
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         tol = TOL * max([1.0] + [float(w.abs().max()) for w in want])
         ok = err <= tol and all(bool(torch.isfinite(g).all()) for g in got)
-        print(f"  {name:20s} {label:6s} max_abs_err {err:.3e} "
+        print(f"  {name:20s} {label:17s} max_abs_err {err:.3e} "
               f"(tol {tol:.1e}) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version "
@@ -213,6 +238,7 @@ def phase_kernels():
     records["warp"] = dict(
         max_abs_err=max(errs),
         ms=cuda_ms(lambda: K.warp(src, small)),
+        cold_ms=cuda_ms_cold(lambda: K.warp(src, small)),
         plain_ms=cuda_ms(lambda: K.warp_plain(src, small)),
         library_ms=cuda_ms(lambda: F.grid_sample(
             img_f, grid_nhwc, mode="bilinear", padding_mode="border",
@@ -228,42 +254,48 @@ def phase_kernels():
     records["reproj_loss"] = dict(
         max_abs_err=max(errs),
         ms=cuda_ms(lambda: K.reproj_loss(warped, target)),
+        cold_ms=cuda_ms_cold(lambda: K.reproj_loss(warped, target)),
         plain_ms=cuda_ms(lambda: K.reproj_loss_plain(warped, target)),
         library_ms=None,
         bytes=nbytes(warped, target, loss))
 
-    # K1: fused warp + loss, with and without the residual planes
-    errs = []
-    for g, label in ((small, "small"), (wild, "wild")):
-        errs.append(compare("warp_reproj_loss",
-                            [K.warp_reproj_loss(src, g, target)],
-                            [K.warp_reproj_loss_plain(src, g, target)], label))
-        errs.append(compare(
-            "warp_reproj_loss", K.warp_reproj_loss(src, g, target, True),
-            K.warp_reproj_loss_plain(src, g, target, True), label + "+res"))
+    # K1 and K2, the fused warp + loss and its backward, at the step's shape
+    # and at two ragged shapes: H and W not multiples of the 32 x 16 tile,
+    # reflect rows inside the first and last tile; there also with 4 and 1
+    # channels (other instances of the kernels' channel template; K2 at 4
+    # channels takes over 48 KB of shared memory)
+    g_up = torch.rand((B, H, W), generator=gen).to("cuda")
+    rgen = torch.Generator().manual_seed(1)
+    cases = [(src, target, small, wild, g_up, f"{B}x{H}x{W}")]
+    for b, h, w, c in ((2, 50, 70, 3), (1, 9, 33, 3), (2, 50, 70, 4),
+                       (1, 9, 33, 1)):
+        cases.append((*make_inputs(rgen, "cuda", b, h, w, c),
+                      torch.rand((b, h, w), generator=rgen).to("cuda"),
+                      f"{b}x{h}x{w}" + ("" if c == C else f"x{c}")))
+    errs = {"warp_reproj_loss": [], "warp_reproj_loss_bwd": []}
+    for s, t, sm, wi, gu, shape in cases:
+        for g, label in ((sm, "small"), (wi, "wild")):
+            errs["warp_reproj_loss"].append(compare(
+                "warp_reproj_loss", [K.warp_reproj_loss(s, g, t)],
+                [K.warp_reproj_loss_plain(s, g, t)], f"{label} {shape}"))
+            args = (s, g, t, gu)
+            errs["warp_reproj_loss_bwd"].append(compare(
+                "warp_reproj_loss_bwd", K.warp_reproj_loss_bwd(*args),
+                K.warp_reproj_loss_bwd_plain(*args), f"{label} {shape}"))
     loss = K.warp_reproj_loss(src, small, target)
     records["warp_reproj_loss"] = dict(
-        max_abs_err=max(errs),
+        max_abs_err=max(errs["warp_reproj_loss"]),
         ms=cuda_ms(lambda: K.warp_reproj_loss(src, small, target)),
+        cold_ms=cuda_ms_cold(lambda: K.warp_reproj_loss(src, small, target)),
         plain_ms=cuda_ms(lambda: K.warp_reproj_loss_plain(src, small,
                                                           target)),
         library_ms=None,
         bytes=nbytes(src, small, target, loss))
-
-    # K2: backward of K1 from its residual planes and an upstream gradient
-    g_up = torch.rand((B, H, W), generator=gen).to("cuda")
-    errs = []
-    for g, label in ((small, "small"), (wild, "wild")):
-        _, warped, ddx, ddy = K.warp_reproj_loss(src, g, target, True)
-        args = (warped, target, ddx, ddy, g_up)
-        errs.append(compare("warp_reproj_loss_bwd",
-                            K.warp_reproj_loss_bwd(*args),
-                            K.warp_reproj_loss_bwd_plain(*args), label))
-    _, warped, ddx, ddy = K.warp_reproj_loss(src, small, target, True)
-    args = (warped, target, ddx, ddy, g_up)
+    args = (src, small, target, g_up)
     records["warp_reproj_loss_bwd"] = dict(
-        max_abs_err=max(errs),
+        max_abs_err=max(errs["warp_reproj_loss_bwd"]),
         ms=cuda_ms(lambda: K.warp_reproj_loss_bwd(*args)),
+        cold_ms=cuda_ms_cold(lambda: K.warp_reproj_loss_bwd(*args)),
         plain_ms=cuda_ms(lambda: K.warp_reproj_loss_bwd_plain(*args)),
         library_ms=None,
         bytes=nbytes(*args, *K.warp_reproj_loss_bwd(*args)))
@@ -277,6 +309,7 @@ def phase_kernels():
     records["reproj_loss_bwd"] = dict(
         max_abs_err=max(errs),
         ms=cuda_ms(lambda: K.reproj_loss_bwd(*args)),
+        cold_ms=cuda_ms_cold(lambda: K.reproj_loss_bwd(*args)),
         plain_ms=cuda_ms(lambda: K.reproj_loss_bwd_plain(*args)),
         library_ms=None,
         bytes=nbytes(*args, *K.reproj_loss_bwd(*args)))
@@ -284,7 +317,8 @@ def phase_kernels():
     for name, rec in records.items():
         rec["bound_ms"], rec["bound_by"] = bound(name, rec.pop("bytes"))
         lib = rec["library_ms"]
-        print(f"  {name:20s} kernel {rec['ms']:.4f} ms  plain "
+        print(f"  {name:20s} kernel {rec['ms']:.4f} ms  cold "
+              f"{rec['cold_ms']:.4f} ms  plain "
               f"{rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']})  library "
               f"{'-' if lib is None else f'{lib:.4f} ms'}", flush=True)
@@ -601,10 +635,10 @@ def phase_train_step(device="cuda"):
                bundle.pose_encoder.encoder.conv1.weight,
                bundle.pose.net[3].bias]
     total = dict(none)
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
     for fused in (True, False):
         bundle.cfg.use_pallas_warp_loss = fused
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         times = []
         for _ in range(3):
             before = [p.detach().clone() for p in watched]
@@ -634,10 +668,10 @@ def phase_train_step(device="cuda"):
         # steady state: the first step includes cuDNN's algorithm choice
         print(f"  fused={fused}: steady wall ms per step "
               f"{[round(1e3 * t, 3) for t in times[1:]]}", flush=True)
-    if device == "cuda":
-        print(f"  peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-              flush=True)
+        if device == "cuda":
+            print(f"  fused={fused}: peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+                  flush=True)
     return total
 
 
@@ -763,10 +797,12 @@ def check_corner_kernels(src, small, wave, wild):
     for name, (kern, plain, args) in calls.items():
         records[name] = rec = dict(
             max_abs_err=errs[name], ms=cuda_ms(lambda: kern(*args)),
+            cold_ms=cuda_ms_cold(lambda: kern(*args)),
             plain_ms=cuda_ms(lambda: plain(*args)), library_ms=None)
         rec["bound_ms"], rec["bound_by"] = bound(
             name, nbytes(*args[:4], *kern(*args)))
-        print(f"  {name:24s} kernel {rec['ms']:.4f} ms  plain "
+        print(f"  {name:24s} kernel {rec['ms']:.4f} ms  cold "
+              f"{rec['cold_ms']:.4f} ms  plain "
               f"{rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']})", flush=True)
     return records

@@ -24,6 +24,8 @@ from unsupervised_pose_estimation_tpu.ops.pallas.reproj_loss import \
 from unsupervised_pose_estimation_tpu.ops.pallas.warp_kernel import \
     grid_sample_fast
 from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+from unsupervised_pose_estimation_tpu_torch.ops.kernels.reproj_loss import \
+    ssim_l1_grads_plain
 from unsupervised_pose_estimation_tpu_torch.ops import losses as TL
 from unsupervised_pose_estimation_tpu_torch.ops import warp as TW
 
@@ -124,19 +126,18 @@ def test_warp_grid_gradient_matches_jax(kind):
 
 
 def test_warp_reproj_loss_bwd_plain_matches_pallas():
-    """K2's plain version vs the Pallas backward kernel on the same
-    residual planes and upstream gradient (B=2, C=3, 64x128)."""
-    img8, target, grid = warp_inputs("small", b=2, h=64, w=128, seed=1)
-    _, warped, ddx, ddy = K.warp_reproj_loss_plain(
-        torch.from_numpy(img8), torch.from_numpy(grid),
-        torch.from_numpy(target), residuals=True)
-    g = np.random.default_rng(2).normal(size=(2, 64, 128)).astype(np.float32)
-    gx, gy = K.warp_reproj_loss_bwd_plain(warped, torch.from_numpy(target),
-                                          ddx, ddy, torch.from_numpy(g))
+    """K2's plain version vs the Pallas backward kernel, which takes the
+    forward's residual planes (here ``warp_plain``'s), on the same upstream
+    gradient (B=2, C=3, 64x128)."""
+    img8, target, grid = (torch.from_numpy(a) for a in warp_inputs(
+        "small", b=2, h=64, w=128, seed=1))
+    g = torch.from_numpy(
+        np.random.default_rng(2).normal(size=(2, 64, 128)).astype(np.float32))
+    gx, gy = K.warp_reproj_loss_bwd_plain(img8, grid, target, g)
+    warped, ddx, ddy = K.warp_plain(img8, grid)
     jgx, jgy = JWL._warp_loss_bwd_call(
-        *(jnp.asarray(t.numpy()) for t in (warped, torch.from_numpy(target),
-                                           ddx, ddy)),
-        jnp.asarray(g), interpret=True)
+        *(jnp.asarray(t.numpy()) for t in (warped, target, ddx, ddy, g)),
+        interpret=True)
     scale = float(np.abs(np.asarray(jgx)).max())
     # the same closed form in the same order, but XLA and PyTorch round
     # the moments' sums in other places: held at 1e-5 of the largest value
@@ -144,6 +145,49 @@ def test_warp_reproj_loss_bwd_plain_matches_pallas():
                                atol=1e-5 * scale)
     np.testing.assert_allclose(gy.numpy(), np.asarray(jgy),
                                atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("kind", ["small", "border"])
+def test_warp_reproj_loss_bwd_plain_equals_residual_form(kind):
+    """The plain K2, which warps again, equals bit for bit the form that
+    contracted the forward's saved warped / ddx / ddy planes."""
+    img8, target, grid = (torch.from_numpy(a) for a in warp_inputs(
+        kind, b=2, h=32, w=64, seed=3))
+    g = torch.from_numpy(
+        np.random.default_rng(4).normal(size=(2, 32, 64)).astype(np.float32))
+    warped, ddx, ddy = K.warp_plain(img8, grid)
+    gp = ssim_l1_grads_plain(warped, target, g, with_target=False)[0]
+    want_x, want_y = gp[:, 0] * ddx[:, 0], gp[:, 0] * ddy[:, 0]
+    for ch in range(1, gp.shape[1]):
+        want_x = want_x + gp[:, ch] * ddx[:, ch]
+        want_y = want_y + gp[:, ch] * ddy[:, ch]
+    gx, gy = K.warp_reproj_loss_bwd_plain(img8, grid, target, g)
+    assert torch.equal(gx, want_x) and torch.equal(gy, want_y)
+
+
+def test_fused_op_saves_no_residual_planes():
+    """WarpReprojLoss keeps the frame, the grid and the target for its
+    backward, and no (B, C, H, W) float plane besides the target."""
+    img8, target, grid = (torch.from_numpy(a) for a in warp_inputs(
+        "small", b=2, h=16, w=24))
+    g = grid.clone().requires_grad_()
+    saved = []
+
+    def pack(t):
+        saved.append(t)
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss = K.warp_reproj_loss_op(img8, g, target)
+    assert [(t.dtype, tuple(t.shape), t.data_ptr()) for t in saved] == [
+        (torch.uint8, (2, 16, 24, 3), img8.data_ptr()),
+        (torch.float32, (2, 2, 16, 24), g.data_ptr()),
+        (torch.float32, (2, 3, 16, 24), target.data_ptr())]
+    planes = [t for t in saved if t.is_floating_point()
+              and tuple(t.shape) == tuple(target.shape)]
+    assert len(planes) == 1 and planes[0].data_ptr() == target.data_ptr()
+    loss.sum().backward()
+    assert torch.isfinite(g.grad).all() and g.grad.abs().max() > 0
 
 
 def test_reproj_loss_bwd_plain_matches_pallas_and_autodiff():

@@ -20,12 +20,32 @@ constexpr int kHaloW = kTileW + 2;
 constexpr int kHaloH = kTileH + 2;
 constexpr int kHalo = kHaloW * kHaloH;
 
+// Let a kernel take `bytes` of dynamic shared memory: above 48 KB only
+// once the function's attribute allows it.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 // Reflect padding by one pixel (row -1 = row 1, row n = row n - 2), then a
 // clamp that only matters for halo pixels of a tile hanging past the image.
 __device__ __forceinline__ int reflect_clamp(int i, int n) {
   if (i < 0) i = -i;
   if (i >= n) i = 2 * n - 2 - i;
   return min(max(i, 0), n - 1);
+}
+
+// Exact conversions between small non-negative integers and float without
+// a conversion instruction (those issue at 1/8 of the float32 rate on
+// sm_90): 2^23 + v holds v in its low mantissa bits, for 0 <= v < 2^23.
+__device__ __forceinline__ float byte_to_float(uint8_t v) {
+  return __uint_as_float(0x4B000000u | v) - 8388608.0f;
+}
+
+__device__ __forceinline__ int whole_float_to_int(float v) {
+  return __float_as_int(v + 8388608.0f) - 0x4B000000;
 }
 
 // Bilinear taps of the warp at output pixel (i, j) of batch element b.
@@ -50,7 +70,9 @@ __device__ __forceinline__ Taps warp_taps(const uint8_t* image,
   const float x0 = fminf(floorf(x), (float)(W - 2));
   const float y0 = fminf(floorf(y), (float)(H - 2));
   Taps t;
-  t.p00 = image + (((long long)b * H + (int)y0) * W + (int)x0) * C;
+  t.p00 = image + (((long long)b * H + whole_float_to_int(y0)) * W +
+                    whole_float_to_int(x0)) *
+                       C;
   t.dx = C;
   t.dy = W * C;
   t.wx = x - x0;
@@ -64,10 +86,10 @@ __device__ __forceinline__ void warp_channel(const Taps& t, int c,
                                              float* warped, float* ddx,
                                              float* ddy) {
   const float inv255 = 1.0f / 255.0f;
-  const float v00 = (float)t.p00[c];
-  const float v01 = (float)t.p00[t.dx + c];
-  const float v10 = (float)t.p00[t.dy + c];
-  const float v11 = (float)t.p00[t.dy + t.dx + c];
+  const float v00 = byte_to_float(t.p00[c]);
+  const float v01 = byte_to_float(t.p00[t.dx + c]);
+  const float v10 = byte_to_float(t.p00[t.dy + c]);
+  const float v11 = byte_to_float(t.p00[t.dy + t.dx + c]);
   const float dtop = v01 - v00;
   const float dbot = v11 - v10;
   const float top = v00 + t.wx * dtop;
@@ -89,14 +111,29 @@ __device__ __forceinline__ float win3(F f) {
   return (r0 + r1 + r2) * (1.0f / 9.0f);
 }
 
+// 0.85 * clamp((1 - SSIM) / 2, 0, 1) + 0.15 * l1 of one channel at one
+// pixel, from its 3x3 window means of p, q, p^2, q^2 and p q.
+__device__ __forceinline__ float dssim_l1(float mu_x, float mu_y, float w_xx,
+                                          float w_yy, float w_xy, float l1) {
+  const float c1 = (float)(0.01 * 0.01);
+  const float c2 = (float)(0.03 * 0.03);
+  const float sigma_x = w_xx - mu_x * mu_x;
+  const float sigma_y = w_yy - mu_y * mu_y;
+  const float sigma_xy = w_xy - mu_x * mu_y;
+  const float ssim_n = (2.0f * mu_x * mu_y + c1) * (2.0f * sigma_xy + c2);
+  const float ssim_d =
+      (mu_x * mu_x + mu_y * mu_y + c1) * (sigma_x + sigma_y + c2);
+  const float dssim = fminf(fmaxf((1.0f - ssim_n / ssim_d) * 0.5f, 0.0f),
+                            1.0f);
+  return 0.85f * dssim + 0.15f * l1;
+}
+
 // Per-pixel 0.85 * clamp((1 - SSIM) / 2, 0, 1) + 0.15 * |t - p|, averaged
 // over channels, for the thread's pixel (tx, ty) of a halo tile. sp / st
 // hold C halo planes of kHalo floats each (prediction / target).
 __device__ __forceinline__ float ssim_l1_score(const float* sp,
                                                const float* st, int C,
                                                int tx, int ty) {
-  const float c1 = (float)(0.01 * 0.01);
-  const float c2 = (float)(0.03 * 0.03);
   const float inv_c = 1.0f / (float)C;
   float acc = 0.0f;
   for (int c = 0; c < C; ++c) {
@@ -107,28 +144,21 @@ __device__ __forceinline__ float ssim_l1_score(const float* sp,
     };
     const float mu_x = win3([&](int dy, int dx) { return at(p, dy, dx); });
     const float mu_y = win3([&](int dy, int dx) { return at(q, dy, dx); });
-    const float sigma_x =
-        win3([&](int dy, int dx) { return at(p, dy, dx) * at(p, dy, dx); }) -
-        mu_x * mu_x;
-    const float sigma_y =
-        win3([&](int dy, int dx) { return at(q, dy, dx) * at(q, dy, dx); }) -
-        mu_y * mu_y;
-    const float sigma_xy =
-        win3([&](int dy, int dx) { return at(p, dy, dx) * at(q, dy, dx); }) -
-        mu_x * mu_y;
-    const float ssim_n = (2.0f * mu_x * mu_y + c1) * (2.0f * sigma_xy + c2);
-    const float ssim_d =
-        (mu_x * mu_x + mu_y * mu_y + c1) * (sigma_x + sigma_y + c2);
-    const float dssim = fminf(fmaxf((1.0f - ssim_n / ssim_d) * 0.5f, 0.0f),
-                              1.0f);
+    const float w_xx =
+        win3([&](int dy, int dx) { return at(p, dy, dx) * at(p, dy, dx); });
+    const float w_yy =
+        win3([&](int dy, int dx) { return at(q, dy, dx) * at(q, dy, dx); });
+    const float w_xy =
+        win3([&](int dy, int dx) { return at(p, dy, dx) * at(q, dy, dx); });
     const float l1 = fabsf(at(q, 1, 1) - at(p, 1, 1));
-    acc = acc + (0.85f * dssim + 0.15f * l1) * inv_c;
+    acc = acc + dssim_l1(mu_x, mu_y, w_xx, w_yy, w_xy, l1) * inv_c;
   }
   return acc;
 }
 
 // ---------------------------------------------------------------------
-// Backward of the SSIM + L1 score (K2, K4)
+// Backward of the SSIM + L1 score (K4 on the 32 x 8 tile below; K2 on the
+// tall tile at the end of this file)
 //
 // The loss at pixel i reads the 3x3 reflect-padded window moments of the
 // prediction p and target t around i. Its adjoint wrt p is
@@ -141,12 +171,13 @@ __device__ __forceinline__ float ssim_l1_score(const float* sp,
 // adjoint of the reflect-padded 3x3 mean: a zero-padded 3x3 sum plus, from
 // the two edge windows that read a reflected row/column, a second deposit
 // on rows/columns 1 and n-2. So an output pixel needs the c_* planes on a
-// one-pixel halo, and those need p and t on a two-pixel halo. A block owns
-// a kTileW x kTileH output tile: it stages p and t of one channel with the
-// two-pixel reflect halo, computes the c_* planes on the one-pixel halo
-// (zero outside the image, which makes A's zero padding), then each thread
-// applies A at its own pixel. The arithmetic follows the plain versions in
-// ops/kernels/reproj_loss.py (ssim_l1_grads_plain) step for step.
+// one-pixel halo, and those need p and t on a two-pixel halo. For K4 a
+// block owns a kTileW x kTileH output tile: it stages p and t of one
+// channel with the two-pixel reflect halo, computes the c_* planes on the
+// one-pixel halo (zero outside the image, which makes A's zero padding),
+// then each thread applies A at its own pixel. The arithmetic follows the
+// plain versions in ops/kernels/reproj_loss.py (ssim_l1_grads_plain) step
+// for step.
 
 constexpr int kHalo2W = kTileW + 4;
 constexpr int kHalo2H = kTileH + 4;
@@ -176,14 +207,69 @@ __device__ __forceinline__ void stage_grad(BwdSmem& sm, const float* g, int b,
   }
 }
 
+// The derivatives of the SSIM term of one channel at one pixel wrt its
+// window means of p, t (c_mu_p, c_mu_t), of p^2 and t^2 (c_sq, shared) and
+// of p t (c_pt), for upstream gradient g, from those five means: zero where
+// the clamp of the SSIM term is active.
+struct SsimCoefs {
+  float mu_p, mu_t, sq, pt;
+};
+
+__device__ __forceinline__ SsimCoefs ssim_coefs_of_means(
+    float mu_p, float mu_t, float wp2, float wt2, float wpt, float g,
+    float k_ssim) {
+  const float c1 = (float)(0.01 * 0.01);
+  const float c2 = (float)(0.03 * 0.03);
+  const float sigma_p = wp2 - mu_p * mu_p;
+  const float sigma_t = wt2 - mu_t * mu_t;
+  const float sigma_pt = wpt - mu_p * mu_t;
+  const float n1 = 2.0f * mu_p * mu_t + c1;
+  const float n2 = 2.0f * sigma_pt + c2;
+  const float d1 = mu_p * mu_p + mu_t * mu_t + c1;
+  const float d2 = sigma_p + sigma_t + c2;
+  const float nn = n1 * n2;
+  const float dd = d1 * d2;
+  const float raw = (1.0f - nn / dd) * 0.5f;
+  // clip's gradient: the SSIM term is dead where it is clamped
+  const float gl = (raw > 0.0f && raw < 1.0f) ? g * k_ssim : 0.0f;
+  const float inv_dd = 1.0f / dd;
+  const float dl_dn = (-0.5f * gl) * inv_dd;
+  const float dl_dd = (((0.5f * gl) * nn) * inv_dd) * inv_dd;
+  SsimCoefs cf;
+  cf.mu_p = ((dl_dn * 2.0f) * mu_t) * (n2 - n1) +
+            ((dl_dd * 2.0f) * mu_p) * (d2 - d1);
+  cf.mu_t = ((dl_dn * 2.0f) * mu_p) * (n2 - n1) +
+            ((dl_dd * 2.0f) * mu_t) * (d2 - d1);
+  cf.sq = dl_dd * d1;
+  cf.pt = (dl_dn * 2.0f) * n1;
+  return cf;
+}
+
+// The same from the pixel's 3x3 window: p and q point at its top-left in
+// planes with rows of S floats.
+template <int S>
+__device__ __forceinline__ SsimCoefs ssim_coefs(const float* p,
+                                                const float* q, float g,
+                                                float k_ssim) {
+  auto at = [](const float* a, int dy, int dx) { return a[dy * S + dx]; };
+  return ssim_coefs_of_means(
+      win3([&](int dy, int dx) { return at(p, dy, dx); }),
+      win3([&](int dy, int dx) { return at(q, dy, dx); }),
+      win3([&](int dy, int dx) { return at(p, dy, dx) * at(p, dy, dx); }),
+      win3([&](int dy, int dx) { return at(q, dy, dx) * at(q, dy, dx); }),
+      win3([&](int dy, int dx) { return at(p, dy, dx) * at(q, dy, dx); }),
+      g, k_ssim);
+}
+
 // Adjoint A of the reflect-padded 3x3 mean at image pixel (i, j), whose
-// coefficient plane c sits at halo coordinates (ty + 1, tx + 1): columns
-// first, then rows, as the plain version.
+// coefficient plane c (rows of S floats) sits at halo coordinates
+// (ty + 1, tx + 1): columns first, then rows, as the plain version.
+template <int S = kHaloW>
 __device__ __forceinline__ float adj3(const float* c, int tx, int ty, int i,
                                       int j, int H, int W) {
   float s[3];
   for (int dy = 0; dy < 3; ++dy) {
-    const float* r = c + (ty + dy) * kHaloW + tx;  // columns j-1, j, j+1
+    const float* r = c + (ty + dy) * S + tx;  // columns j-1, j, j+1
     float v = r[1] + r[0] + r[2];
     if (j == 1) v = v + r[0];
     if (j == W - 2) v = v + r[2];
@@ -195,6 +281,31 @@ __device__ __forceinline__ float adj3(const float* c, int tx, int ty, int i,
   return out * (1.0f / 9.0f);
 }
 
+// adj3 at two vertically adjacent pixels (i, j) and (i + 1, j), the first
+// at halo coordinates (ty + 1, tx + 1): the row sums of the two middle
+// rows serve both, in the order adj3 takes them.
+template <int S>
+__device__ __forceinline__ void adj3_pair(const float* c, int tx, int ty,
+                                          int i, int j, int H, int W,
+                                          float* a, float* b) {
+  float s[4];
+  for (int dy = 0; dy < 4; ++dy) {
+    const float* r = c + (ty + dy) * S + tx;
+    float v = r[1] + r[0] + r[2];
+    if (j == 1) v = v + r[0];
+    if (j == W - 2) v = v + r[2];
+    s[dy] = v;
+  }
+  float oa = s[0] + s[1] + s[2];
+  if (i == 1) oa = oa + s[0];
+  if (i == H - 2) oa = oa + s[2];
+  float ob = s[1] + s[2] + s[3];
+  if (i + 1 == 1) ob = ob + s[1];
+  if (i + 1 == H - 2) ob = ob + s[3];
+  *a = oa * (1.0f / 9.0f);
+  *b = ob * (1.0f / 9.0f);
+}
+
 // One channel of the SSIM + L1 adjoint for the thread's pixel (i, j) of
 // batch element b: stages the channel's planes, builds the c_* planes,
 // and returns dL/dp (and dL/dt in *gt when gt is not null). k_ssim =
@@ -204,8 +315,6 @@ __device__ __forceinline__ float ssim_l1_grad_channel(
     BwdSmem& sm, const float* pred, const float* target, long long base,
     int oy, int ox, int i, int j, int H, int W, float k_ssim, float k_l1,
     float* gt) {
-  const float c1 = (float)(0.01 * 0.01);
-  const float c2 = (float)(0.03 * 0.03);
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
   for (int k = tid; k < kHalo2; k += nthreads) {
@@ -219,47 +328,15 @@ __device__ __forceinline__ float ssim_l1_grad_channel(
   for (int k = tid; k < kHalo; k += nthreads) {
     const int hy = k / kHaloW, hx = k % kHaloW;
     const int y = oy + hy, x = ox + hx;
-    float c_mu_p = 0.0f, c_mu_t = 0.0f, c_sq = 0.0f, c_pt = 0.0f;
+    SsimCoefs cf = {0.0f, 0.0f, 0.0f, 0.0f};
     if (y >= 0 && y < H && x >= 0 && x < W) {
-      const float* p = sm.p + hy * kHalo2W + hx;
-      const float* q = sm.t + hy * kHalo2W + hx;
-      auto at = [](const float* a, int dy, int dx) {
-        return a[dy * kHalo2W + dx];
-      };
-      const float mu_p = win3([&](int dy, int dx) { return at(p, dy, dx); });
-      const float mu_t = win3([&](int dy, int dx) { return at(q, dy, dx); });
-      const float wp2 =
-          win3([&](int dy, int dx) { return at(p, dy, dx) * at(p, dy, dx); });
-      const float wt2 =
-          win3([&](int dy, int dx) { return at(q, dy, dx) * at(q, dy, dx); });
-      const float wpt =
-          win3([&](int dy, int dx) { return at(p, dy, dx) * at(q, dy, dx); });
-      const float sigma_p = wp2 - mu_p * mu_p;
-      const float sigma_t = wt2 - mu_t * mu_t;
-      const float sigma_pt = wpt - mu_p * mu_t;
-      const float n1 = 2.0f * mu_p * mu_t + c1;
-      const float n2 = 2.0f * sigma_pt + c2;
-      const float d1 = mu_p * mu_p + mu_t * mu_t + c1;
-      const float d2 = sigma_p + sigma_t + c2;
-      const float nn = n1 * n2;
-      const float dd = d1 * d2;
-      const float raw = (1.0f - nn / dd) * 0.5f;
-      // clip's gradient: the SSIM term is dead where it is clamped
-      const float gl = (raw > 0.0f && raw < 1.0f) ? sm.g[k] * k_ssim : 0.0f;
-      const float inv_dd = 1.0f / dd;
-      const float dl_dn = (-0.5f * gl) * inv_dd;
-      const float dl_dd = (((0.5f * gl) * nn) * inv_dd) * inv_dd;
-      c_mu_p = ((dl_dn * 2.0f) * mu_t) * (n2 - n1) +
-               ((dl_dd * 2.0f) * mu_p) * (d2 - d1);
-      c_mu_t = ((dl_dn * 2.0f) * mu_p) * (n2 - n1) +
-               ((dl_dd * 2.0f) * mu_t) * (d2 - d1);
-      c_sq = dl_dd * d1;
-      c_pt = (dl_dn * 2.0f) * n1;
+      cf = ssim_coefs<kHalo2W>(sm.p + hy * kHalo2W + hx,
+                               sm.t + hy * kHalo2W + hx, sm.g[k], k_ssim);
     }
-    sm.mu_p[k] = c_mu_p;
-    sm.mu_t[k] = c_mu_t;
-    sm.sq[k] = c_sq;
-    sm.pt[k] = c_pt;
+    sm.mu_p[k] = cf.mu_p;
+    sm.mu_t[k] = cf.mu_t;
+    sm.sq[k] = cf.sq;
+    sm.pt[k] = cf.pt;
   }
   __syncthreads();
   float gp = 0.0f;
@@ -281,6 +358,222 @@ __device__ __forceinline__ float ssim_l1_grad_channel(
   }
   __syncthreads();
   return gp;
+}
+
+// ---------------------------------------------------------------------
+// The tall tile of the fused warp + loss pair (K1, K2)
+//
+// A block of 32 x 8 threads owns a 32 x 16 output tile: thread (tx, ty)
+// owns the pixels of column tx in tile rows 2 ty and 2 ty + 1, whose 3x3
+// windows share two rows. Against a 32 x 8 tile, the halo costs 1.41x the
+// tile's positions at two pixels (720 / 512, was 432 / 256) and 1.20x at
+// one pixel (612 / 512, was 340 / 256). Halo tiles are walked in 2-D
+// (for_each_halo): each warp takes whole rows of the 32 interior columns,
+// whose loads are one aligned segment per row, and the 2R side columns go
+// to the threads from the last one down, whose warps have the fewest rows.
+
+constexpr int kTallW = 32;
+constexpr int kTallH = 16;
+constexpr int kTallWarps = 8;  // blockDim = (kTallW, kTallWarps)
+
+// f(hy, hx) once for each position of a ROWS x (kTallW + 2R) halo tile.
+template <int R, int ROWS, typename F>
+__device__ __forceinline__ void for_each_halo(F f) {
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  for (int hy = warp; hy < ROWS; hy += kTallWarps) f(hy, R + lane);
+  constexpr int n = kTallW * kTallWarps;
+  for (int k = n - 1 - (warp * kTallW + lane); k < ROWS * 2 * R; k += n) {
+    const int s = k % (2 * R);
+    f(k / (2 * R), s < R ? s : kTallW + s);
+  }
+}
+
+// Stage C planes of a planar float image (B, C, H, W), batch element b, on
+// a ROWS x (kTallW + 2R) reflect-padded halo tile whose row 0 is image row
+// oy and whose interior columns start at image column ox: one float per
+// position.
+template <int C, int R, int ROWS>
+__device__ __forceinline__ void stage_planes(float* dst, const float* src,
+                                             int b, int oy, int ox, int H,
+                                             int W) {
+  constexpr int HW = kTallW + 2 * R;
+  const long long plane = (long long)H * W;
+  const float* base = src + (long long)b * C * plane;
+  for_each_halo<R, ROWS>([&](int hy, int hx) {
+    const int y = reflect_clamp(oy + hy, H);
+    const int x = reflect_clamp(ox - R + hx, W);
+    const float* s = base + (long long)y * W + x;
+    for (int c = 0; c < C; ++c) dst[(c * ROWS + hy) * HW + hx] = s[c * plane];
+  });
+}
+
+// stage_planes for a tile whose interior lies inside the image, with rows
+// 16-byte aligned: the interior read as float4s, the side columns as
+// floats, held in registers between load() and store() so that a kernel
+// can issue these loads before other work and store them after it.
+template <int C, int R, int ROWS>
+struct PlanePrefetch {
+  static constexpr int HW = kTallW + 2 * R;
+  static constexpr int n = kTallW * kTallWarps;
+  static constexpr int V = kTallW / 4;      // float4s per interior row
+  static constexpr int NV = C * ROWS * V;   // float4s per tile
+  static constexpr int NS = C * ROWS * 2 * R;  // side floats per tile
+  float4 v[(NV + n - 1) / n];
+  float s[(NS + n - 1) / n];
+
+  __device__ __forceinline__ void load(const float* src, int b, int oy,
+                                       int ox, int H, int W) {
+    const long long plane = (long long)H * W;
+    const float* base = src + (long long)b * C * plane;
+    const int tid = threadIdx.y * kTallW + threadIdx.x;
+#pragma unroll
+    for (int m = 0; m < (NV + n - 1) / n; ++m) {
+      const int k = tid + m * n;
+      if (k < NV) {
+        const int c = k / (V * ROWS), r = (k / V) % ROWS;
+        const int y = reflect_clamp(oy + r, H);
+        v[m] = __ldg(reinterpret_cast<const float4*>(
+                         base + c * plane + (long long)y * W + ox) +
+                     k % V);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < (NS + n - 1) / n; ++m) {
+      const int k = tid + m * n;
+      if (k < NS) {
+        const int c = k / (2 * R * ROWS), r = (k / (2 * R)) % ROWS;
+        const int sc = k % (2 * R);
+        const int y = reflect_clamp(oy + r, H);
+        const int x = reflect_clamp(ox - R + (sc < R ? sc : kTallW + sc), W);
+        s[m] = base[c * plane + (long long)y * W + x];
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* dst) const {
+    const int tid = threadIdx.y * kTallW + threadIdx.x;
+#pragma unroll
+    for (int m = 0; m < (NV + n - 1) / n; ++m) {
+      const int k = tid + m * n;
+      if (k < NV) {
+        const int c = k / (V * ROWS), r = (k / V) % ROWS;
+        float* d = dst + (c * ROWS + r) * HW + R + 4 * (k % V);
+        d[0] = v[m].x;
+        d[1] = v[m].y;
+        d[2] = v[m].z;
+        d[3] = v[m].w;
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < (NS + n - 1) / n; ++m) {
+      const int k = tid + m * n;
+      if (k < NS) {
+        const int c = k / (2 * R * ROWS), r = (k / (2 * R)) % ROWS;
+        const int sc = k % (2 * R);
+        dst[(c * ROWS + r) * HW + (sc < R ? sc : kTallW + sc)] = s[m];
+      }
+    }
+  }
+};
+
+// Warp batch element b of the uint8 frame onto a ROWS x (kTallW + 2R)
+// reflect-padded halo tile (C planes), as stage_planes places its planes.
+template <int C, int R, int ROWS>
+__device__ __forceinline__ void stage_warp(float* dst, const uint8_t* image,
+                                           const float* grid, int b, int oy,
+                                           int ox, int H, int W) {
+  constexpr int HW = kTallW + 2 * R;
+  for_each_halo<R, ROWS>([&](int hy, int hx) {
+    const int y = reflect_clamp(oy + hy, H);
+    const int x = reflect_clamp(ox - R + hx, W);
+    const Taps t = warp_taps(image, grid, b, y, x, H, W, C);
+    for (int c = 0; c < C; ++c) {
+      warp_channel(t, c, dst + (c * ROWS + hy) * HW + hx, nullptr, nullptr);
+    }
+  });
+}
+
+// Stage a fused kernel's tiles: the warped frame (stage_warp) and the
+// target (stage_planes). On an interior tile with aligned rows (vec) the
+// target's loads are issued first and stored after the warp, so the two
+// phases' memory latencies overlap.
+template <int C, int R, int ROWS>
+__device__ __forceinline__ void stage_warp_and_target(
+    float* warped, float* tgt, const uint8_t* image, const float* grid,
+    const float* target, int b, int oy, int ox, int H, int W, bool vec) {
+  if (vec && ox + kTallW <= W) {
+    PlanePrefetch<C, R, ROWS> pre;
+    pre.load(target, b, oy, ox, H, W);
+    stage_warp<C, R, ROWS>(warped, image, grid, b, oy, ox, H, W);
+    pre.store(tgt);
+  } else {
+    stage_warp<C, R, ROWS>(warped, image, grid, b, oy, ox, H, W);
+    stage_planes<C, R, ROWS>(tgt, target, b, oy, ox, H, W);
+  }
+}
+
+// The window sums of p, q, p^2, q^2 and p q (m[n][0..4]) of N vertically
+// consecutive 3x3 windows, the first with its top-left at p / q in planes
+// with rows of S floats, as win3 forms them before its 1/9: each column
+// summed top to bottom, the columns left to right. The N + 2 rows they
+// span are read once per column and their products formed once.
+template <int N, int S>
+__device__ __forceinline__ void window_sums(const float* p, const float* q,
+                                            float (&m)[N][5]) {
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) {
+    float x[N + 2], y[N + 2], xx[N + 2], yy[N + 2], xy[N + 2];
+#pragma unroll
+    for (int k = 0; k < N + 2; ++k) {
+      x[k] = p[k * S + dx];
+      y[k] = q[k * S + dx];
+      xx[k] = x[k] * x[k];
+      yy[k] = y[k] * y[k];
+      xy[k] = x[k] * y[k];
+    }
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const float col[5] = {x[n] + x[n + 1] + x[n + 2],
+                            y[n] + y[n + 1] + y[n + 2],
+                            xx[n] + xx[n + 1] + xx[n + 2],
+                            yy[n] + yy[n + 1] + yy[n + 2],
+                            xy[n] + xy[n + 1] + xy[n + 2]};
+#pragma unroll
+      for (int v = 0; v < 5; ++v) {
+        m[n][v] = dx == 0 ? col[v] : m[n][v] + col[v];
+      }
+    }
+  }
+}
+
+// ssim_l1_score of two vertically adjacent pixels, column tx of tile rows
+// ty and ty + 1, from C one-pixel halo planes of the tall tile (ROWS x
+// (kTallW + 2)), with window_sums: this rounds as ssim_l1_score does.
+template <int C, int ROWS>
+__device__ __forceinline__ void ssim_l1_score_pair(const float* sp,
+                                                   const float* st, int tx,
+                                                   int ty, float* a,
+                                                   float* b) {
+  constexpr int S = kTallW + 2;
+  const float inv_c = 1.0f / (float)C;
+  const float ninth = 1.0f / 9.0f;
+  float acc[2] = {0.0f, 0.0f};
+  for (int c = 0; c < C; ++c) {
+    const float* p = sp + (c * ROWS + ty) * S + tx;
+    const float* q = st + (c * ROWS + ty) * S + tx;
+    float m[2][5];
+    window_sums<2, S>(p, q, m);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const float l1 = fabsf(q[(n + 1) * S + 1] - p[(n + 1) * S + 1]);
+      acc[n] = acc[n] + dssim_l1(m[n][0] * ninth, m[n][1] * ninth,
+                                 m[n][2] * ninth, m[n][3] * ninth,
+                                 m[n][4] * ninth, l1) *
+                            inv_c;
+    }
+  }
+  *a = acc[0];
+  *b = acc[1];
 }
 
 }  // namespace upe

@@ -2,75 +2,195 @@
 // pixel coordinates.
 //
 // Replaces unsupervised_pose_estimation_tpu/ops/pallas/warp_loss.py
-// _bwd_kernel (launched by _warp_loss_bwd_call). The TPU kernel holds one
+// _bwd_kernel (launched by _warp_loss_bwd_call). The TPU kernel reads the
+// forward's saved warped, d warped/dx and d warped/dy planes, holds one
 // (batch, channel) plane per grid step and accumulates the two coordinate
-// cotangents across the sequential channel axis of its grid. GPU blocks run
-// in no order, so here a block owns a 32 x 8 output tile and loops over the
-// C channels itself (common.cuh, ssim_l1_grad_channel): per channel it
-// stages the warped image and the target with a two-pixel reflect halo,
-// forms the SSIM adjoint's coefficient planes on a one-pixel halo and
-// applies the adjoint of the reflect-padded window at each pixel. Each
-// thread contracts dL/dwarped with the saved d warped/dx and d warped/dy
-// planes (K1's residuals) in registers, so gx and gy are written once, with
-// no atomics. The target's cotangent is not formed: targets are input
-// frames.
+// cotangents across the sequential channel axis of its grid. Here a block
+// owns a 32 x 16 output tile and all C channels of it, so gx and gy are
+// written once, with no atomics, and it rebuilds the warp from the uint8
+// frame and the grid (upe::warp_taps, upe::warp_channel: the values K1's
+// plain version makes, bit for bit) instead of reading saved planes. The
+// target's cotangent is not formed: targets are input frames.
 //
-// Bound on an H100 SXM: bytes. Per pixel it reads 4 * C floats (warped,
-// target, ddx, ddy) and the upstream gradient and writes two floats: at
-// B=12, C=3, 192x640 that is 88.5 MB, 26.4 us at 3.35 TB/s (about 156 float
-// operations per pixel and channel, 10.3 us at 67 TFLOP/s).
+// Bound on an H100 SXM: bytes. Per pixel it reads C source bytes, 8 grid
+// bytes, 4 * C target bytes and the upstream gradient, and writes two
+// floats: at B=12, C=3, 192x640 that is 51.6 MB, 15.4 us at 3.35 TB/s
+// (about 514 float operations per pixel, 11.3 us at 67 TFLOP/s).
+//
+// Design against that bound (common.cuh, the tall tile). The work per
+// pixel, not the bytes, sets its time: the SSIM adjoint's window sums and
+// coefficients are formed on a halo, and shared memory carries every
+// operand. One pass stages the warped frame and the target of every
+// channel on the two-pixel reflect halo (720 positions for 512 pixels),
+// one pass forms the adjoint's coefficient planes of every channel on the
+// one-pixel halo (612 positions; three planes, as the target needs no
+// c_mu_t), each thread three positions of a column so the window rows
+// they share are read once; then each thread applies the adjoint at two
+// vertically adjacent pixels (their middle row sums shared) and contracts
+// it with d warped/dx and d warped/dy, rebuilt in registers. Two barriers
+// per block; 39.3 KB of shared memory at C=3. No conversion instruction
+// turns the frame's bytes into floats (common.cuh, byte_to_float). C is a
+// template argument (1-4 channels), so the channel loops unroll.
 #include "common.cuh"
 
 namespace {
 
-__global__ void warp_loss_bwd_kernel(const float* __restrict__ warped,
-                                     const float* __restrict__ target,
-                                     const float* __restrict__ ddx,
-                                     const float* __restrict__ ddy,
-                                     const float* __restrict__ g,
-                                     float* __restrict__ gx,
-                                     float* __restrict__ gy, int C, int H,
-                                     int W, float k_ssim, float k_l1) {
-  __shared__ upe::BwdSmem sm;
-  const int b = blockIdx.z;
-  const int oy = blockIdx.y * upe::kTileH - 1;
-  const int ox = blockIdx.x * upe::kTileW - 1;
-  const int i = oy + 1 + threadIdx.y;
-  const int j = ox + 1 + threadIdx.x;
-  const long long plane = (long long)H * W;
-  upe::stage_grad(sm, g, b, oy, ox, H, W);
-  float ax = 0.0f, ay = 0.0f;
+constexpr int kRows2 = upe::kTallH + 4;  // two-pixel halo
+constexpr int kCols2 = upe::kTallW + 4;
+constexpr int kHalo2 = kRows2 * kCols2;
+constexpr int kRows1 = upe::kTallH + 2;  // one-pixel halo
+constexpr int kCols1 = upe::kTallW + 2;
+constexpr int kHalo1 = kRows1 * kCols1;
+
+template <int C>
+constexpr size_t kSmemBytes = (2 * C * kHalo2 + 3 * C * kHalo1) * sizeof(float);
+
+// The coefficient planes (c_mu_p, c_sq, c_pt; zero outside the image, the
+// adjoint's padding) of three vertically consecutive one-pixel-halo
+// positions (hy0 .. hy0 + 2, hx), every channel, from upe::window_sums.
+template <int C>
+__device__ __forceinline__ void coef_column(const float* sp, const float* st,
+                                            float* cf, const float* gb,
+                                            int y0, int x0, int hy0, int hx,
+                                            int H, int W, float k_ssim) {
+  constexpr int N = 3;
+  const int nc = C * kHalo1;
+  const int x = x0 - 1 + hx;
+  const float ninth = 1.0f / 9.0f;
+  bool in[N];
+  float gv[N];
+  for (int n = 0; n < N; ++n) {
+    const int y = y0 - 1 + hy0 + n;
+    in[n] = y >= 0 && y < H && x >= 0 && x < W;
+    gv[n] = in[n] ? gb[(long long)y * W + x] : 0.0f;
+  }
   for (int c = 0; c < C; ++c) {
-    const long long base = ((long long)b * C + c) * plane;
-    const float gp = upe::ssim_l1_grad_channel(sm, warped, target, base, oy,
-                                               ox, i, j, H, W, k_ssim, k_l1,
-                                               nullptr);
-    if (i < H && j < W) {
-      const long long o = base + (long long)i * W + j;
-      ax = ax + gp * ddx[o];
-      ay = ay + gp * ddy[o];
+    const int o2 = c * kHalo2 + hy0 * kCols2 + hx;
+    float m[N][5];
+    upe::window_sums<N, kCols2>(sp + o2, st + o2, m);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      upe::SsimCoefs k = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (in[n]) {
+        k = upe::ssim_coefs_of_means(m[n][0] * ninth, m[n][1] * ninth,
+                                     m[n][2] * ninth, m[n][3] * ninth,
+                                     m[n][4] * ninth, gv[n], k_ssim);
+      }
+      const int o = c * kHalo1 + (hy0 + n) * kCols1 + hx;
+      cf[o] = k.mu_p;
+      cf[nc + o] = k.sq;
+      cf[2 * nc + o] = k.pt;
     }
   }
-  if (i < H && j < W) {
-    const long long o = (long long)b * plane + (long long)i * W + j;
-    gx[o] = ax;
-    gy[o] = ay;
+}
+
+template <int C>
+__global__ void __launch_bounds__(upe::kTallW * upe::kTallWarps, 4)
+    warp_loss_bwd_kernel(const uint8_t* __restrict__ image,
+                         const float* __restrict__ grid,
+                         const float* __restrict__ target,
+                         const float* __restrict__ g,
+                         float* __restrict__ gx, float* __restrict__ gy,
+                         int H, int W, float k_ssim, float k_l1, bool vec) {
+  extern __shared__ float smem[];
+  float* sp = smem;               // C planes of the warped frame, 2-px halo
+  float* st = sp + C * kHalo2;    // C planes of the target, 2-px halo
+  float* cf = st + C * kHalo2;    // C planes each of c_mu_p, c_sq, c_pt,
+  const int nc = C * kHalo1;      // one-pixel halo
+  const int b = blockIdx.z;
+  const int y0 = blockIdx.y * upe::kTallH;
+  const int x0 = blockIdx.x * upe::kTallW;
+  const long long plane = (long long)H * W;
+  const float* gb = g + (long long)b * plane;
+  const int lane = threadIdx.x, warp = threadIdx.y;
+
+  upe::stage_warp_and_target<C, 2, kRows2>(sp, st, image, grid, target, b,
+                                           y0 - 2, x0, H, W, vec);
+  __syncthreads();
+
+  // the coefficient planes, three positions of a column per thread: warps
+  // 0-5 take the 32 interior columns, twelve threads of warp 6 the two
+  // side columns
+  constexpr int kTriples = kRows1 / 3;
+  static_assert(kRows1 % 3 == 0 && kTriples < upe::kTallWarps, "tile");
+  if (warp < kTriples) {
+    coef_column<C>(sp, st, cf, gb, y0, x0, 3 * warp, 1 + lane, H, W, k_ssim);
+  } else if (warp == kTriples && lane < 2 * kTriples) {
+    coef_column<C>(sp, st, cf, gb, y0, x0, 3 * (lane / 2),
+                   lane % 2 ? kCols1 - 1 : 0, H, W, k_ssim);
   }
+  __syncthreads();
+
+  // each thread: tile rows 2 warp and 2 warp + 1 of column lane
+  const int ty = 2 * warp;
+  const int i = y0 + ty, j = x0 + lane;
+  if (i >= H || j >= W) return;
+  const bool two = i + 1 < H;
+  const upe::Taps ta = upe::warp_taps(image, grid, b, i, j, H, W, C);
+  const upe::Taps tb =
+      two ? upe::warp_taps(image, grid, b, i + 1, j, H, W, C) : ta;
+  const float ga = gb[(long long)i * W + j];
+  const float gbv = two ? gb[(long long)(i + 1) * W + j] : 0.0f;
+  float ax[2] = {0.0f, 0.0f}, ay[2] = {0.0f, 0.0f};
+  for (int c = 0; c < C; ++c) {
+    const float* c_mu_p = cf + c * kHalo1;
+    float mu[2], sq[2], pt[2];
+    upe::adj3_pair<kCols1>(c_mu_p, lane, ty, i, j, H, W, &mu[0], &mu[1]);
+    upe::adj3_pair<kCols1>(c_mu_p + nc, lane, ty, i, j, H, W, &sq[0],
+                           &sq[1]);
+    upe::adj3_pair<kCols1>(c_mu_p + 2 * nc, lane, ty, i, j, H, W, &pt[0],
+                           &pt[1]);
+    for (int r = 0; r < 2; ++r) {
+      float p, ddx, ddy;
+      upe::warp_channel(r == 0 ? ta : tb, c, &p, &ddx, &ddy);
+      const float t = st[c * kHalo2 + (ty + r + 2) * kCols2 + lane + 2];
+      const float d = p - t;
+      const float sgn = d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
+      const float l1g = (k_l1 * (r == 0 ? ga : gbv)) * sgn;
+      const float gp = ((l1g + mu[r]) + (2.0f * p) * sq[r]) + t * pt[r];
+      ax[r] = ax[r] + gp * ddx;
+      ay[r] = ay[r] + gp * ddy;
+    }
+  }
+  const long long o = (long long)b * plane + (long long)i * W + j;
+  gx[o] = ax[0];
+  gy[o] = ay[0];
+  if (two) {
+    gx[o + W] = ax[1];
+    gy[o + W] = ay[1];
+  }
+}
+
+template <int C>
+int launch(const uint8_t* image, const float* grid, const float* target,
+           const float* g, float* gx, float* gy, int B, int H, int W,
+           cudaStream_t stream) {
+  const dim3 block(upe::kTallW, upe::kTallWarps);
+  const dim3 blocks((W + upe::kTallW - 1) / upe::kTallW,
+                    (H + upe::kTallH - 1) / upe::kTallH, B);
+  const cudaError_t err =
+      upe::allow_smem(warp_loss_bwd_kernel<C>, kSmemBytes<C>);
+  if (err != cudaSuccess) return (int)err;
+  const double inv_c = 1.0 / C;
+  const bool vec = W % 4 == 0 && (uintptr_t)target % 16 == 0;
+  warp_loss_bwd_kernel<C><<<blocks, block, kSmemBytes<C>, stream>>>(
+      image, grid, target, g, gx, gy, H, W, (float)(0.85 * inv_c),
+      (float)(0.15 * inv_c), vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int upe_warp_reproj_loss_bwd(const float* warped,
-                                        const float* target, const float* ddx,
-                                        const float* ddy, const float* g,
-                                        float* gx, float* gy, int B, int C,
-                                        int H, int W, cudaStream_t stream) {
-  const dim3 block(upe::kTileW, upe::kTileH);
-  const dim3 blocks((W + upe::kTileW - 1) / upe::kTileW,
-                    (H + upe::kTileH - 1) / upe::kTileH, B);
-  const double inv_c = 1.0 / C;
-  warp_loss_bwd_kernel<<<blocks, block, 0, stream>>>(
-      warped, target, ddx, ddy, g, gx, gy, C, H, W, (float)(0.85 * inv_c),
-      (float)(0.15 * inv_c));
-  return (int)cudaGetLastError();
+extern "C" int upe_warp_reproj_loss_bwd(const uint8_t* image,
+                                        const float* grid,
+                                        const float* target, const float* g,
+                                        float* gx, float* gy, int B, int H,
+                                        int W, int C, cudaStream_t stream) {
+  switch (C) {
+    case 1: return launch<1>(image, grid, target, g, gx, gy, B, H, W, stream);
+    case 2: return launch<2>(image, grid, target, g, gx, gy, B, H, W, stream);
+    case 3: return launch<3>(image, grid, target, g, gx, gy, B, H, W, stream);
+    case 4: return launch<4>(image, grid, target, g, gx, gy, B, H, W, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -36,9 +36,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "upe_warp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "upe_reproj_loss": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "upe_warp_reproj_loss": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "upe_warp_reproj_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _P],
+    "upe_warp_reproj_loss": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "upe_warp_reproj_loss_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "upe_reproj_loss_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "upe_fetch_corners": [_P] * 8 + [_I] * 7 + [_P],
     "upe_fetch_corners_packed": [_P] * 8 + [_I] * 7 + [_P],

@@ -4,13 +4,14 @@ warp's coordinates.
 CUDA kernels: ``csrc/warp_loss.cu`` (K1) replaces the TPU kernel
 ``unsupervised_pose_estimation_tpu/ops/pallas/warp_loss.py::
 _warp_loss_kernel_v9``: the warped frame is scored in shared memory and
-never written to device memory unless the residuals are asked for.
-``csrc/warp_loss_bwd.cu`` (K2) replaces that file's ``_bwd_kernel``: the
-SSIM/L1 adjoint contracted with the saved coordinate-gradient planes, summed
-over channels. On an H100 both are bound by bytes at B=12, C=3, 192x640: K1
-moves 39.8 MB without residuals (11.9 us at 3.35 TB/s), K2 88.5 MB
-(26.4 us). ``warp_reproj_loss_op`` is the differentiable op: K1 with
-residuals forward, K2 backward.
+never written to device memory. ``csrc/warp_loss_bwd.cu`` (K2) replaces
+that file's ``_bwd_kernel``: the SSIM/L1 adjoint contracted with the
+coordinate-gradient planes of the warp, summed over channels. K2 rebuilds
+the warp from the uint8 frame and the grid, so the forward saves no
+residual planes. On an H100 both are bound by bytes at B=12, C=3, 192x640:
+K1 moves 39.8 MB (11.9 us at 3.35 TB/s), K2 51.6 MB (15.4 us): the frame,
+the grid, the target, the upstream gradient and the two cotangents.
+``warp_reproj_loss_op`` is the differentiable op: K1 forward, K2 backward.
 """
 
 from __future__ import annotations
@@ -32,56 +33,53 @@ def _check(image, grid, target):
                          f"{tuple(target.shape)}")
 
 
-def _check_bwd(warped, target, ddx, ddy, g):
-    b, c, h, w = warped.shape
-    for name, t, shape in (("target", target, (b, c, h, w)),
-                           ("ddx", ddx, (b, c, h, w)),
-                           ("ddy", ddy, (b, c, h, w)), ("g", g, (b, h, w))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"warp_reproj_loss_bwd: {name} must be float32 "
-                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
-    if warped.dtype != torch.float32 or h < 2 or w < 2:
-        raise ValueError("warp_reproj_loss_bwd: warped must be float32, at "
-                         "least 2x2")
+def _check_channels(name, c):
+    if not 1 <= c <= 4:
+        raise ValueError(f"{name}: the CUDA kernel takes 1-4 channels, got "
+                         f"{c}")
 
 
-def warp_reproj_loss_plain(image, grid, target, residuals: bool = False):
+def _check_bwd(image, grid, target, g):
+    _check(image, grid, target)
+    b, h, w, _ = image.shape
+    if g.dtype != torch.float32 or tuple(g.shape) != (b, h, w):
+        raise ValueError(f"warp_reproj_loss_bwd: g must be float32 "
+                         f"{(b, h, w)}, got {g.dtype} {tuple(g.shape)}")
+
+
+def warp_reproj_loss_plain(image, grid, target):
     """Plain PyTorch version of the kernel: image (B, H, W, C) uint8, planar
     grid (B, 2, H, W), planar float32 target (B, C, H, W) -> loss
-    (B, H, W, 1) of the warped image against the target, plus
-    (warped, ddx, ddy) planar (B, C, H, W) with ``residuals``."""
+    (B, H, W, 1) of the warped image against the target."""
     _check(image, grid, target)
-    warped, ddx, ddy = warp_plain(image, grid)
-    loss = score_plain(warped, target)[..., None]
-    return (loss, warped, ddx, ddy) if residuals else loss
+    return score_plain(warp_plain(image, grid)[0], target)[..., None]
 
 
-def warp_reproj_loss(image, grid, target, residuals: bool = False):
+def warp_reproj_loss(image, grid, target):
     """The op of :func:`warp_reproj_loss_plain`: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
     _check(image, grid, target)
     if not _lib.on_cuda("warp_reproj_loss", image, grid, target):
-        return warp_reproj_loss_plain(image, grid, target, residuals)
+        return warp_reproj_loss_plain(image, grid, target)
     b, h, w, c = image.shape
-    dev = image.device
-    loss = torch.empty((b, h, w, 1), dtype=torch.float32, device=dev)
-    res = tuple(torch.empty((b, c, h, w), dtype=torch.float32, device=dev)
-                for _ in range(3)) if residuals else ()
-    ptrs = [t.data_ptr() for t in res] if residuals else [None] * 3
-    with torch.cuda.device(dev):
+    _check_channels("warp_reproj_loss", c)
+    loss = torch.empty((b, h, w, 1), dtype=torch.float32, device=image.device)
+    with torch.cuda.device(image.device):
         _lib.launch("warp_reproj_loss", "upe_warp_reproj_loss",
                     image.data_ptr(), grid.data_ptr(), target.data_ptr(),
-                    loss.data_ptr(), *ptrs, b, h, w, c, _lib.stream_of(image))
-    return (loss, *res) if residuals else loss
+                    loss.data_ptr(), b, h, w, c, _lib.stream_of(image))
+    return loss
 
 
-def warp_reproj_loss_bwd_plain(warped, target, ddx, ddy, g):
-    """Plain PyTorch version of the backward kernel: K1's residuals
-    (warped, ddx, ddy) and the target, planar (B, C, H, W) float32, and the
+def warp_reproj_loss_bwd_plain(image, grid, target, g):
+    """Plain PyTorch version of the backward kernel: the forward's inputs
+    (image (B, H, W, C) uint8, planar grid, planar float32 target) and the
     upstream gradient g (B, H, W) -> (gx, gy) (B, H, W), the cotangents of
-    the clamped pixel coordinates: sum over channels, in channel order, of
-    dL/dwarped * ddx (resp. ddy)."""
-    _check_bwd(warped, target, ddx, ddy, g)
+    the clamped pixel coordinates: the warp of :func:`warp_plain` again,
+    then the sum over channels, in channel order, of dL/dwarped * ddx
+    (resp. ddy)."""
+    _check_bwd(image, grid, target, g)
+    warped, ddx, ddy = warp_plain(image, grid)
     gp = ssim_l1_grads_plain(warped, target, g, with_target=False)[0]
     gx = gp[:, 0] * ddx[:, 0]
     gy = gp[:, 0] * ddy[:, 0]
@@ -91,44 +89,44 @@ def warp_reproj_loss_bwd_plain(warped, target, ddx, ddy, g):
     return gx, gy
 
 
-def warp_reproj_loss_bwd(warped, target, ddx, ddy, g):
+def warp_reproj_loss_bwd(image, grid, target, g):
     """The backward of :func:`warp_reproj_loss_bwd_plain`: the CUDA kernel
     for CUDA tensors, the plain version for CPU tensors."""
-    _check_bwd(warped, target, ddx, ddy, g)
-    if not _lib.on_cuda("warp_reproj_loss_bwd", warped, target, ddx, ddy, g):
-        return warp_reproj_loss_bwd_plain(warped, target, ddx, ddy, g)
-    b, c, h, w = warped.shape
+    _check_bwd(image, grid, target, g)
+    if not _lib.on_cuda("warp_reproj_loss_bwd", image, grid, target, g):
+        return warp_reproj_loss_bwd_plain(image, grid, target, g)
+    b, h, w, c = image.shape
+    _check_channels("warp_reproj_loss_bwd", c)
     gx, gy = (torch.empty_like(g) for _ in range(2))
-    with torch.cuda.device(warped.device):
+    with torch.cuda.device(image.device):
         _lib.launch("warp_reproj_loss_bwd", "upe_warp_reproj_loss_bwd",
-                    warped.data_ptr(), target.data_ptr(), ddx.data_ptr(),
-                    ddy.data_ptr(), g.data_ptr(), gx.data_ptr(),
-                    gy.data_ptr(), b, c, h, w, _lib.stream_of(warped))
+                    image.data_ptr(), grid.data_ptr(), target.data_ptr(),
+                    g.data_ptr(), gx.data_ptr(), gy.data_ptr(), b, h, w, c,
+                    _lib.stream_of(image))
     return gx, gy
 
 
 class WarpReprojLoss(torch.autograd.Function):
-    """K1 forward with its residual planes saved, K2 backward (the JAX
-    package's custom_vjp of ``warp_reproj_loss``). Only the grid gets a
-    gradient: image and target are input frames."""
+    """K1 forward, K2 backward (the JAX package's custom_vjp of
+    ``warp_reproj_loss``). It saves the forward's inputs and nothing else:
+    K2 rebuilds the warp. Only the grid gets a gradient: image and target
+    are input frames."""
 
     @staticmethod
     def forward(ctx, image, grid, target):
-        loss, warped, ddx, ddy = warp_reproj_loss(image, grid, target,
-                                                  residuals=True)
-        ctx.save_for_backward(grid, target, warped, ddx, ddy)
-        return loss
+        ctx.save_for_backward(image, grid, target)
+        return warp_reproj_loss(image, grid, target)
 
     @staticmethod
     def backward(ctx, grad):
-        grid, target, warped, ddx, ddy = ctx.saved_tensors
-        gx, gy = warp_reproj_loss_bwd(warped, target, ddx, ddy,
+        image, grid, target = ctx.saved_tensors
+        gx, gy = warp_reproj_loss_bwd(image, grid, target,
                                       grad[..., 0].contiguous())
         return None, grid_cotangent(grid, gx, gy), None
 
 
 def warp_reproj_loss_op(image, grid, target):
-    """Differentiable :func:`warp_reproj_loss` (no residuals): through
+    """Differentiable :func:`warp_reproj_loss`: through
     :class:`WarpReprojLoss` when the grid's gradient is recorded, else the
     forward wrapper alone."""
     if torch.is_grad_enabled() and grid.requires_grad:
