@@ -10,11 +10,12 @@ Phases, each timed on its own line:
 1. the build of every CUDA kernel of the port (one nvcc call);
 2. each kernel against its plain PyTorch version on the card, at the
    step's shapes (B=12, C=3, 192x640), on a small-motion grid and on a wild
-   grid that reaches the borders (K1 and K2 also at B=2, 50x70 and B=1,
-   9x33, where the tiles hang past the image), with its time (warm, and
-   with the L2 flushed before each launch) beside the plain version's, the
-   card's bound and, for the warp, F.grid_sample's: the forward kernels
-   K1, K3, K5 and the backward kernels K2, K4;
+   grid that reaches the borders (K1-K4 also at B=2, 50x70, 50x68 and
+   B=1, 9x33, where the tiles hang past the image, and with 4 and 1
+   channels; K4 with and without the target's gradient), with its time
+   (warm, and with the L2 flushed before each launch) beside the plain
+   version's, the card's bound and, for the warp, F.grid_sample's: the
+   forward kernels K1, K3, K5 and the backward kernels K2, K4;
 3. the validation step at batch 12, 640x192, random weights from a seed,
    with and without the warped images, with the kernel launches it makes,
    after a check of the card's validation and inference steps against the
@@ -168,10 +169,13 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(name, read_write_bytes):
+def bound(name, read_write_bytes, flops_per_pixel=None):
     """-> (bound_ms, bound_by): the larger of the bytes' time at the memory
-    rate and the operations' time at the float32 rate."""
-    flops = KERNELS[name]["flops_per_pixel"] * B * H * W
+    rate and the operations' time at the float32 rate (per pixel: the
+    kernel's record's unless given)."""
+    if flops_per_pixel is None:
+        flops_per_pixel = KERNELS[name]["flops_per_pixel"]
+    flops = flops_per_pixel * B * H * W
     t_bytes = read_write_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -245,43 +249,52 @@ def phase_kernels():
             align_corners=True)),
         bytes=nbytes(src, small, *out))
 
-    # K3: reprojection loss of the small-motion warp against the target
-    warped = out[0]
-    errs = [compare("reproj_loss", [K.reproj_loss(p, target)],
-                    [K.reproj_loss_plain(p, target)], label)
-            for p, label in ((warped, "small"), (K.warp(src, wild)[0], "wild"))]
-    loss = K.reproj_loss(warped, target)
-    records["reproj_loss"] = dict(
-        max_abs_err=max(errs),
-        ms=cuda_ms(lambda: K.reproj_loss(warped, target)),
-        cold_ms=cuda_ms_cold(lambda: K.reproj_loss(warped, target)),
-        plain_ms=cuda_ms(lambda: K.reproj_loss_plain(warped, target)),
-        library_ms=None,
-        bytes=nbytes(warped, target, loss))
-
-    # K1 and K2, the fused warp + loss and its backward, at the step's shape
-    # and at two ragged shapes: H and W not multiples of the 32 x 16 tile,
-    # reflect rows inside the first and last tile; there also with 4 and 1
-    # channels (other instances of the kernels' channel template; K2 at 4
-    # channels takes over 48 KB of shared memory)
+    # K1-K4, the fused warp + loss, the loss of a warped plane (K5's) and
+    # their backward kernels, at the step's shape and at ragged shapes: H
+    # and W not multiples of the 32 x 16 tile, reflect rows inside the
+    # first and last tile; 50x68 with rows of whole float4s, so that its
+    # interior tiles take the vector loads beside a last tile that does not;
+    # there also with 4 and 1 channels (other instances of the kernels'
+    # channel template; K2 and K4 at 4 channels take over 48 KB of shared
+    # memory). K4 in both modes: without the target's gradient its dL/dpred
+    # must be the same bits.
     g_up = torch.rand((B, H, W), generator=gen).to("cuda")
     rgen = torch.Generator().manual_seed(1)
     cases = [(src, target, small, wild, g_up, f"{B}x{H}x{W}")]
-    for b, h, w, c in ((2, 50, 70, 3), (1, 9, 33, 3), (2, 50, 70, 4),
-                       (1, 9, 33, 1)):
+    for b, h, w, c in ((2, 50, 70, 3), (1, 9, 33, 3), (2, 50, 68, 3),
+                       (2, 50, 70, 4), (1, 9, 33, 1)):
         cases.append((*make_inputs(rgen, "cuda", b, h, w, c),
                       torch.rand((b, h, w), generator=rgen).to("cuda"),
                       f"{b}x{h}x{w}" + ("" if c == C else f"x{c}")))
-    errs = {"warp_reproj_loss": [], "warp_reproj_loss_bwd": []}
+    errs = {name: [] for name in ("warp_reproj_loss", "warp_reproj_loss_bwd",
+                                  "reproj_loss", "reproj_loss_bwd")}
     for s, t, sm, wi, gu, shape in cases:
         for g, label in ((sm, "small"), (wi, "wild")):
+            tag = f"{label} {shape}"
             errs["warp_reproj_loss"].append(compare(
                 "warp_reproj_loss", [K.warp_reproj_loss(s, g, t)],
-                [K.warp_reproj_loss_plain(s, g, t)], f"{label} {shape}"))
+                [K.warp_reproj_loss_plain(s, g, t)], tag))
             args = (s, g, t, gu)
             errs["warp_reproj_loss_bwd"].append(compare(
                 "warp_reproj_loss_bwd", K.warp_reproj_loss_bwd(*args),
-                K.warp_reproj_loss_bwd_plain(*args), f"{label} {shape}"))
+                K.warp_reproj_loss_bwd_plain(*args), tag))
+            p = K.warp(s, g)[0]
+            errs["reproj_loss"].append(compare(
+                "reproj_loss", [K.reproj_loss(p, t)],
+                [K.reproj_loss_plain(p, t)], tag))
+            both = K.reproj_loss_bwd(p, t, gu)
+            errs["reproj_loss_bwd"].append(compare(
+                "reproj_loss_bwd", both, K.reproj_loss_bwd_plain(p, t, gu),
+                tag))
+            gp, gt = K.reproj_loss_bwd(p, t, gu, with_target=False)
+            errs["reproj_loss_bwd"].append(compare(
+                "reproj_loss_bwd", [gp], K.reproj_loss_bwd_plain(
+                    p, t, gu, with_target=False)[:1], tag + " gp only"))
+            if gt is not None or not torch.equal(gp, both[0]):
+                raise AssertionError(f"reproj_loss_bwd without the target "
+                                     f"({tag}): gp differs from the "
+                                     f"both-gradients call's, or a target "
+                                     f"gradient came back")
     loss = K.warp_reproj_loss(src, small, target)
     records["warp_reproj_loss"] = dict(
         max_abs_err=max(errs["warp_reproj_loss"]),
@@ -300,19 +313,36 @@ def phase_kernels():
         library_ms=None,
         bytes=nbytes(*args, *K.warp_reproj_loss_bwd(*args)))
 
-    # K4: backward of K3 wrt both images
-    errs = [compare("reproj_loss_bwd", K.reproj_loss_bwd(p, target, g_up),
-                    K.reproj_loss_bwd_plain(p, target, g_up), label)
-            for p, label in ((warped, "small"),
-                             (K.warp(src, wild)[0], "wild"))]
+    # K3 and K4 timed on the small-motion warp against the target; K4's
+    # record in the mode with both gradients
+    warped = out[0]
+    loss = K.reproj_loss(warped, target)
+    records["reproj_loss"] = dict(
+        max_abs_err=max(errs["reproj_loss"]),
+        ms=cuda_ms(lambda: K.reproj_loss(warped, target)),
+        cold_ms=cuda_ms_cold(lambda: K.reproj_loss(warped, target)),
+        plain_ms=cuda_ms(lambda: K.reproj_loss_plain(warped, target)),
+        library_ms=None,
+        bytes=nbytes(warped, target, loss))
     args = (warped, target, g_up)
     records["reproj_loss_bwd"] = dict(
-        max_abs_err=max(errs),
+        max_abs_err=max(errs["reproj_loss_bwd"]),
         ms=cuda_ms(lambda: K.reproj_loss_bwd(*args)),
         cold_ms=cuda_ms_cold(lambda: K.reproj_loss_bwd(*args)),
         plain_ms=cuda_ms(lambda: K.reproj_loss_bwd_plain(*args)),
         library_ms=None,
         bytes=nbytes(*args, *K.reproj_loss_bwd(*args)))
+
+    def gp_only():
+        return K.reproj_loss_bwd(*args, with_target=False)
+
+    # the training step's mode, without the target's gradient: its own
+    # bytes and operations (154 per channel: no c_mu_t, no adjoint of it)
+    bound_ms, bound_by = bound("reproj_loss_bwd",
+                               nbytes(*args, gp_only()[0]), 154 * C)
+    print(f"  {'reproj_loss_bwd':20s} gp only: kernel "
+          f"{cuda_ms(gp_only):.4f} ms  cold {cuda_ms_cold(gp_only):.4f} ms  "
+          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
 
     for name, rec in records.items():
         rec["bound_ms"], rec["bound_by"] = bound(name, rec.pop("bytes"))

@@ -8,6 +8,8 @@ kernels are compared with these plain versions on the card by
 ``chip_smoke.py``.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,10 @@ from unsupervised_pose_estimation_tpu_torch.ops.kernels.reproj_loss import \
     ssim_l1_grads_plain
 from unsupervised_pose_estimation_tpu_torch.ops import losses as TL
 from unsupervised_pose_estimation_tpu_torch.ops import warp as TW
+
+# the module: the package's name ``reproj_loss`` is the wrapper function
+reproj_loss_mod = importlib.import_module(
+    "unsupervised_pose_estimation_tpu_torch.ops.kernels.reproj_loss")
 
 # The closed-form adjoints and autodiff of the composed graph associate the
 # float32 sums differently; the reference's own fused-gradient test holds
@@ -221,6 +227,47 @@ def test_reproj_loss_bwd_plain_matches_pallas_and_autodiff():
                                    rtol=RTOL, atol=ATOL)
         np.testing.assert_allclose(tt.grad.numpy(), np.asarray(want[1]),
                                    rtol=RTOL, atol=ATOL)
+
+
+def test_reproj_loss_bwd_plain_without_target_gives_the_same_gp():
+    """K4's plain version without the target's gradient: the same dL/dpred
+    bits as the call with both, and None for the target."""
+    rng = np.random.default_rng(8)
+    p, t = (torch.from_numpy(rng.uniform(size=(2, 3, 10, 13)).astype(
+        np.float32)) for _ in range(2))
+    g = torch.from_numpy(rng.normal(size=(2, 10, 13)).astype(np.float32))
+    gp, gt = K.reproj_loss_bwd_plain(p, t, g)
+    gp_only, none = K.reproj_loss_bwd_plain(p, t, g, with_target=False)
+    assert none is None and gt is not None
+    assert torch.equal(gp_only, gp)
+
+
+def test_reproj_loss_op_asks_for_the_target_gradient_only_when_recorded(
+        monkeypatch):
+    """ReprojLoss passes ``with_target`` = whether the target's gradient is
+    recorded; with a target that needs none (the training step's input
+    frames), pred.grad is the same bits as with both recorded."""
+    rng = np.random.default_rng(9)
+    p, t = (rng.uniform(size=(2, 3, 12, 16)).astype(np.float32)
+            for _ in range(2))
+    w = torch.from_numpy(rng.normal(size=(2, 12, 16, 1)).astype(np.float32))
+    modes = []
+    bwd = reproj_loss_mod.reproj_loss_bwd
+
+    def spy(*args, with_target=True):
+        modes.append(with_target)
+        return bwd(*args, with_target=with_target)
+
+    monkeypatch.setattr(reproj_loss_mod, "reproj_loss_bwd", spy)
+    grads = []
+    for target_grad in (True, False):
+        tp = torch.from_numpy(p).requires_grad_()
+        tt = torch.from_numpy(t).requires_grad_(target_grad)
+        (K.reproj_loss_op(tp, tt) * w).sum().backward()
+        assert (tt.grad is not None) == target_grad
+        grads.append(tp.grad)
+    assert modes == [True, False]
+    assert torch.equal(grads[0], grads[1])
 
 
 def test_min_reprojection_splits_tied_gradients_like_jax():

@@ -145,8 +145,17 @@ def test_wrappers_run_the_plain_versions_on_cpu_without_counting():
             ((K.warp_reproj_loss(src, grid, target),),
              (K.warp_reproj_loss_plain(src, grid, target),)),
             (K.warp_reproj_loss_bwd(src, grid, target, target[:, 0]),
-             K.warp_reproj_loss_bwd_plain(src, grid, target, target[:, 0]))]:
+             K.warp_reproj_loss_bwd_plain(src, grid, target, target[:, 0])),
+            (K.reproj_loss_bwd(target, target.flip(-1), target[:, 0]),
+             K.reproj_loss_bwd_plain(target, target.flip(-1),
+                                     target[:, 0]))]:
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # K4 without the target's gradient: its dL/dpred alone
+    got = K.reproj_loss_bwd(target, target.flip(-1), target[:, 0],
+                            with_target=False)
+    want = K.reproj_loss_bwd_plain(target, target.flip(-1), target[:, 0],
+                                   with_target=False)
+    assert got[1] is None and want[1] is None and torch.equal(got[0], want[0])
     x0i = torch.zeros((B, H, W), dtype=torch.int32)
     blocks = torch.zeros((B, H // 8, 1), dtype=torch.int32)
     planes = target.reshape(B * C, H, W)

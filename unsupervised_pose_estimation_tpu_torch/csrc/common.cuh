@@ -12,13 +12,10 @@
 
 namespace upe {
 
-// Output tile of the SSIM kernels: 32 x 8 pixels, one thread each, plus a
-// one-pixel halo for the 3x3 window.
+// Tile of the per-pixel kernels (K5 and the corner fetches of corners.cu):
+// 32 x 8 pixels, one thread each.
 constexpr int kTileW = 32;
 constexpr int kTileH = 8;
-constexpr int kHaloW = kTileW + 2;
-constexpr int kHaloH = kTileH + 2;
-constexpr int kHalo = kHaloW * kHaloH;
 
 // Let a kernel take `bytes` of dynamic shared memory: above 48 KB only
 // once the function's attribute allows it.
@@ -101,16 +98,6 @@ __device__ __forceinline__ void warp_channel(const Taps& t, int c,
   }
 }
 
-// 3x3 window mean of f(dy, dx) over a halo tile: rows first, then columns,
-// the order of ops.losses._win3.
-template <typename F>
-__device__ __forceinline__ float win3(F f) {
-  const float r0 = f(0, 0) + f(1, 0) + f(2, 0);
-  const float r1 = f(0, 1) + f(1, 1) + f(2, 1);
-  const float r2 = f(0, 2) + f(1, 2) + f(2, 2);
-  return (r0 + r1 + r2) * (1.0f / 9.0f);
-}
-
 // 0.85 * clamp((1 - SSIM) / 2, 0, 1) + 0.15 * l1 of one channel at one
 // pixel, from its 3x3 window means of p, q, p^2, q^2 and p q.
 __device__ __forceinline__ float dssim_l1(float mu_x, float mu_y, float w_xx,
@@ -128,240 +115,8 @@ __device__ __forceinline__ float dssim_l1(float mu_x, float mu_y, float w_xx,
   return 0.85f * dssim + 0.15f * l1;
 }
 
-// Per-pixel 0.85 * clamp((1 - SSIM) / 2, 0, 1) + 0.15 * |t - p|, averaged
-// over channels, for the thread's pixel (tx, ty) of a halo tile. sp / st
-// hold C halo planes of kHalo floats each (prediction / target).
-__device__ __forceinline__ float ssim_l1_score(const float* sp,
-                                               const float* st, int C,
-                                               int tx, int ty) {
-  const float inv_c = 1.0f / (float)C;
-  float acc = 0.0f;
-  for (int c = 0; c < C; ++c) {
-    const float* p = sp + c * kHalo + ty * kHaloW + tx;
-    const float* q = st + c * kHalo + ty * kHaloW + tx;
-    auto at = [](const float* a, int dy, int dx) {
-      return a[dy * kHaloW + dx];
-    };
-    const float mu_x = win3([&](int dy, int dx) { return at(p, dy, dx); });
-    const float mu_y = win3([&](int dy, int dx) { return at(q, dy, dx); });
-    const float w_xx =
-        win3([&](int dy, int dx) { return at(p, dy, dx) * at(p, dy, dx); });
-    const float w_yy =
-        win3([&](int dy, int dx) { return at(q, dy, dx) * at(q, dy, dx); });
-    const float w_xy =
-        win3([&](int dy, int dx) { return at(p, dy, dx) * at(q, dy, dx); });
-    const float l1 = fabsf(at(q, 1, 1) - at(p, 1, 1));
-    acc = acc + dssim_l1(mu_x, mu_y, w_xx, w_yy, w_xy, l1) * inv_c;
-  }
-  return acc;
-}
-
 // ---------------------------------------------------------------------
-// Backward of the SSIM + L1 score (K4 on the 32 x 8 tile below; K2 on the
-// tall tile at the end of this file)
-//
-// The loss at pixel i reads the 3x3 reflect-padded window moments of the
-// prediction p and target t around i. Its adjoint wrt p is
-//
-//   dL/dp = k_l1 * g * sign(p - t)
-//         + A(c_mu_p) + 2 p * A(c_sq) + t * A(c_pt)        (and likewise t)
-//
-// where the c_* planes are the derivatives of the SSIM term wrt the window
-// means mu_p, mu_t, W(p^2) / W(t^2) and W(p t) at every pixel, and A is the
-// adjoint of the reflect-padded 3x3 mean: a zero-padded 3x3 sum plus, from
-// the two edge windows that read a reflected row/column, a second deposit
-// on rows/columns 1 and n-2. So an output pixel needs the c_* planes on a
-// one-pixel halo, and those need p and t on a two-pixel halo. For K4 a
-// block owns a kTileW x kTileH output tile: it stages p and t of one
-// channel with the two-pixel reflect halo, computes the c_* planes on the
-// one-pixel halo (zero outside the image, which makes A's zero padding),
-// then each thread applies A at its own pixel. The arithmetic follows the
-// plain versions in ops/kernels/reproj_loss.py (ssim_l1_grads_plain) step
-// for step.
-
-constexpr int kHalo2W = kTileW + 4;
-constexpr int kHalo2H = kTileH + 4;
-constexpr int kHalo2 = kHalo2W * kHalo2H;
-
-struct BwdSmem {
-  float p[kHalo2];   // prediction (warped), two-pixel reflect halo
-  float t[kHalo2];   // target, two-pixel reflect halo
-  float g[kHalo];    // upstream gradient (B, H, W) on the one-pixel halo
-  float mu_p[kHalo];  // c_mu_p on the one-pixel halo
-  float mu_t[kHalo];  // c_mu_t
-  float sq[kHalo];    // c_sq
-  float pt[kHalo];    // c_pt
-};
-
-// Stage g of batch element b on the one-pixel halo, zero outside the image.
-__device__ __forceinline__ void stage_grad(BwdSmem& sm, const float* g, int b,
-                                           int oy, int ox, int H, int W) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const long long plane = (long long)H * W;
-  for (int k = tid; k < kHalo; k += blockDim.x * blockDim.y) {
-    const int i = oy + k / kHaloW;
-    const int j = ox + k % kHaloW;
-    sm.g[k] = (i >= 0 && i < H && j >= 0 && j < W)
-                  ? g[(long long)b * plane + (long long)i * W + j]
-                  : 0.0f;
-  }
-}
-
-// The derivatives of the SSIM term of one channel at one pixel wrt its
-// window means of p, t (c_mu_p, c_mu_t), of p^2 and t^2 (c_sq, shared) and
-// of p t (c_pt), for upstream gradient g, from those five means: zero where
-// the clamp of the SSIM term is active.
-struct SsimCoefs {
-  float mu_p, mu_t, sq, pt;
-};
-
-__device__ __forceinline__ SsimCoefs ssim_coefs_of_means(
-    float mu_p, float mu_t, float wp2, float wt2, float wpt, float g,
-    float k_ssim) {
-  const float c1 = (float)(0.01 * 0.01);
-  const float c2 = (float)(0.03 * 0.03);
-  const float sigma_p = wp2 - mu_p * mu_p;
-  const float sigma_t = wt2 - mu_t * mu_t;
-  const float sigma_pt = wpt - mu_p * mu_t;
-  const float n1 = 2.0f * mu_p * mu_t + c1;
-  const float n2 = 2.0f * sigma_pt + c2;
-  const float d1 = mu_p * mu_p + mu_t * mu_t + c1;
-  const float d2 = sigma_p + sigma_t + c2;
-  const float nn = n1 * n2;
-  const float dd = d1 * d2;
-  const float raw = (1.0f - nn / dd) * 0.5f;
-  // clip's gradient: the SSIM term is dead where it is clamped
-  const float gl = (raw > 0.0f && raw < 1.0f) ? g * k_ssim : 0.0f;
-  const float inv_dd = 1.0f / dd;
-  const float dl_dn = (-0.5f * gl) * inv_dd;
-  const float dl_dd = (((0.5f * gl) * nn) * inv_dd) * inv_dd;
-  SsimCoefs cf;
-  cf.mu_p = ((dl_dn * 2.0f) * mu_t) * (n2 - n1) +
-            ((dl_dd * 2.0f) * mu_p) * (d2 - d1);
-  cf.mu_t = ((dl_dn * 2.0f) * mu_p) * (n2 - n1) +
-            ((dl_dd * 2.0f) * mu_t) * (d2 - d1);
-  cf.sq = dl_dd * d1;
-  cf.pt = (dl_dn * 2.0f) * n1;
-  return cf;
-}
-
-// The same from the pixel's 3x3 window: p and q point at its top-left in
-// planes with rows of S floats.
-template <int S>
-__device__ __forceinline__ SsimCoefs ssim_coefs(const float* p,
-                                                const float* q, float g,
-                                                float k_ssim) {
-  auto at = [](const float* a, int dy, int dx) { return a[dy * S + dx]; };
-  return ssim_coefs_of_means(
-      win3([&](int dy, int dx) { return at(p, dy, dx); }),
-      win3([&](int dy, int dx) { return at(q, dy, dx); }),
-      win3([&](int dy, int dx) { return at(p, dy, dx) * at(p, dy, dx); }),
-      win3([&](int dy, int dx) { return at(q, dy, dx) * at(q, dy, dx); }),
-      win3([&](int dy, int dx) { return at(p, dy, dx) * at(q, dy, dx); }),
-      g, k_ssim);
-}
-
-// Adjoint A of the reflect-padded 3x3 mean at image pixel (i, j), whose
-// coefficient plane c (rows of S floats) sits at halo coordinates
-// (ty + 1, tx + 1): columns first, then rows, as the plain version.
-template <int S = kHaloW>
-__device__ __forceinline__ float adj3(const float* c, int tx, int ty, int i,
-                                      int j, int H, int W) {
-  float s[3];
-  for (int dy = 0; dy < 3; ++dy) {
-    const float* r = c + (ty + dy) * S + tx;  // columns j-1, j, j+1
-    float v = r[1] + r[0] + r[2];
-    if (j == 1) v = v + r[0];
-    if (j == W - 2) v = v + r[2];
-    s[dy] = v;
-  }
-  float out = s[0] + s[1] + s[2];
-  if (i == 1) out = out + s[0];
-  if (i == H - 2) out = out + s[2];
-  return out * (1.0f / 9.0f);
-}
-
-// adj3 at two vertically adjacent pixels (i, j) and (i + 1, j), the first
-// at halo coordinates (ty + 1, tx + 1): the row sums of the two middle
-// rows serve both, in the order adj3 takes them.
-template <int S>
-__device__ __forceinline__ void adj3_pair(const float* c, int tx, int ty,
-                                          int i, int j, int H, int W,
-                                          float* a, float* b) {
-  float s[4];
-  for (int dy = 0; dy < 4; ++dy) {
-    const float* r = c + (ty + dy) * S + tx;
-    float v = r[1] + r[0] + r[2];
-    if (j == 1) v = v + r[0];
-    if (j == W - 2) v = v + r[2];
-    s[dy] = v;
-  }
-  float oa = s[0] + s[1] + s[2];
-  if (i == 1) oa = oa + s[0];
-  if (i == H - 2) oa = oa + s[2];
-  float ob = s[1] + s[2] + s[3];
-  if (i + 1 == 1) ob = ob + s[1];
-  if (i + 1 == H - 2) ob = ob + s[3];
-  *a = oa * (1.0f / 9.0f);
-  *b = ob * (1.0f / 9.0f);
-}
-
-// One channel of the SSIM + L1 adjoint for the thread's pixel (i, j) of
-// batch element b: stages the channel's planes, builds the c_* planes,
-// and returns dL/dp (and dL/dt in *gt when gt is not null). k_ssim =
-// 0.85 / C and k_l1 = 0.15 / C. Every thread of the block must call it;
-// it ends with the block synchronised and the shared planes free.
-__device__ __forceinline__ float ssim_l1_grad_channel(
-    BwdSmem& sm, const float* pred, const float* target, long long base,
-    int oy, int ox, int i, int j, int H, int W, float k_ssim, float k_l1,
-    float* gt) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  for (int k = tid; k < kHalo2; k += nthreads) {
-    const int y = reflect_clamp(oy - 1 + k / kHalo2W, H);
-    const int x = reflect_clamp(ox - 1 + k % kHalo2W, W);
-    const long long o = base + (long long)y * W + x;
-    sm.p[k] = pred[o];
-    sm.t[k] = target[o];
-  }
-  __syncthreads();
-  for (int k = tid; k < kHalo; k += nthreads) {
-    const int hy = k / kHaloW, hx = k % kHaloW;
-    const int y = oy + hy, x = ox + hx;
-    SsimCoefs cf = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (y >= 0 && y < H && x >= 0 && x < W) {
-      cf = ssim_coefs<kHalo2W>(sm.p + hy * kHalo2W + hx,
-                               sm.t + hy * kHalo2W + hx, sm.g[k], k_ssim);
-    }
-    sm.mu_p[k] = cf.mu_p;
-    sm.mu_t[k] = cf.mu_t;
-    sm.sq[k] = cf.sq;
-    sm.pt[k] = cf.pt;
-  }
-  __syncthreads();
-  float gp = 0.0f;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  if (i < H && j < W) {
-    const float p = sm.p[(ty + 2) * kHalo2W + tx + 2];
-    const float t = sm.t[(ty + 2) * kHalo2W + tx + 2];
-    const float d = p - t;
-    const float sgn = (float)((d > 0.0f) - (d < 0.0f));
-    const float l1g = (k_l1 * sm.g[(ty + 1) * kHaloW + tx + 1]) * sgn;
-    const float a_sq = adj3(sm.sq, tx, ty, i, j, H, W);
-    const float a_pt = adj3(sm.pt, tx, ty, i, j, H, W);
-    gp = ((l1g + adj3(sm.mu_p, tx, ty, i, j, H, W)) + (2.0f * p) * a_sq) +
-         t * a_pt;
-    if (gt != nullptr) {
-      *gt = ((-l1g + adj3(sm.mu_t, tx, ty, i, j, H, W)) + (2.0f * t) * a_sq) +
-            p * a_pt;
-    }
-  }
-  __syncthreads();
-  return gp;
-}
-
-// ---------------------------------------------------------------------
-// The tall tile of the fused warp + loss pair (K1, K2)
+// The tall tile of the SSIM/L1 kernels (K1-K4)
 //
 // A block of 32 x 8 threads owns a 32 x 16 output tile: thread (tx, ty)
 // owns the pixels of column tx in tile rows 2 ty and 2 ty + 1, whose 3x3
@@ -514,7 +269,7 @@ __device__ __forceinline__ void stage_warp_and_target(
 
 // The window sums of p, q, p^2, q^2 and p q (m[n][0..4]) of N vertically
 // consecutive 3x3 windows, the first with its top-left at p / q in planes
-// with rows of S floats, as win3 forms them before its 1/9: each column
+// with rows of S floats, in the order of ops.losses._win3: each column
 // summed top to bottom, the columns left to right. The N + 2 rows they
 // span are read once per column and their products formed once.
 template <int N, int S>
@@ -546,9 +301,10 @@ __device__ __forceinline__ void window_sums(const float* p, const float* q,
   }
 }
 
-// ssim_l1_score of two vertically adjacent pixels, column tx of tile rows
-// ty and ty + 1, from C one-pixel halo planes of the tall tile (ROWS x
-// (kTallW + 2)), with window_sums: this rounds as ssim_l1_score does.
+// Per-pixel 0.85 * clamp((1 - SSIM) / 2, 0, 1) + 0.15 * |t - p|, averaged
+// over channels in channel order, of two vertically adjacent pixels: column
+// tx of tile rows ty and ty + 1, from C one-pixel halo planes of the tall
+// tile (ROWS x (kTallW + 2)) of the prediction (sp) and target (st).
 template <int C, int ROWS>
 __device__ __forceinline__ void ssim_l1_score_pair(const float* sp,
                                                    const float* st, int tx,
@@ -574,6 +330,169 @@ __device__ __forceinline__ void ssim_l1_score_pair(const float* sp,
   }
   *a = acc[0];
   *b = acc[1];
+}
+
+// ---------------------------------------------------------------------
+// Backward of the SSIM + L1 score on the tall tile (K2, K4)
+//
+// The loss at pixel i reads the 3x3 reflect-padded window moments of the
+// prediction p and target t around i. Its adjoint wrt p is
+//
+//   dL/dp = k_l1 * g * sign(p - t)
+//         + A(c_mu_p) + 2 p * A(c_sq) + t * A(c_pt)        (and likewise t)
+//
+// where the c_* planes are the derivatives of the SSIM term wrt the window
+// means mu_p, mu_t, W(p^2) / W(t^2) and W(p t) at every pixel, and A is the
+// adjoint of the reflect-padded 3x3 mean: a zero-padded 3x3 sum plus, from
+// the two edge windows that read a reflected row/column, a second deposit
+// on rows/columns 1 and n-2. So an output pixel needs the c_* planes on a
+// one-pixel halo, and those need p and t on a two-pixel halo. A block of
+// the tall tile stages p and t of every channel on the two-pixel reflect
+// halo (kRows2 x kCols2), forms the c_* planes of every channel on the
+// one-pixel halo (kRows1 x kCols1; zero outside the image, which makes A's
+// zero padding), three positions of a column per thread (coef_planes), and
+// then applies A at two vertically adjacent pixels per thread (adj3_pair):
+// two barriers per block. Where the target needs no cotangent (K2, and K4
+// without it) there are three c_* planes per channel, no c_mu_t. The
+// arithmetic follows ssim_l1_grads_plain in ops/kernels/reproj_loss.py
+// step for step.
+
+constexpr int kRows2 = kTallH + 4;  // two-pixel halo
+constexpr int kCols2 = kTallW + 4;
+constexpr int kHalo2 = kRows2 * kCols2;
+constexpr int kRows1 = kTallH + 2;  // one-pixel halo
+constexpr int kCols1 = kTallW + 2;
+constexpr int kHalo1 = kRows1 * kCols1;
+
+// The derivatives of the SSIM term of one channel at one pixel wrt its
+// window means of p, t (c_mu_p, c_mu_t), of p^2 and t^2 (c_sq, shared) and
+// of p t (c_pt), for upstream gradient g, from those five means: zero where
+// the clamp of the SSIM term is active.
+struct SsimCoefs {
+  float mu_p, mu_t, sq, pt;
+};
+
+__device__ __forceinline__ SsimCoefs ssim_coefs_of_means(
+    float mu_p, float mu_t, float wp2, float wt2, float wpt, float g,
+    float k_ssim) {
+  const float c1 = (float)(0.01 * 0.01);
+  const float c2 = (float)(0.03 * 0.03);
+  const float sigma_p = wp2 - mu_p * mu_p;
+  const float sigma_t = wt2 - mu_t * mu_t;
+  const float sigma_pt = wpt - mu_p * mu_t;
+  const float n1 = 2.0f * mu_p * mu_t + c1;
+  const float n2 = 2.0f * sigma_pt + c2;
+  const float d1 = mu_p * mu_p + mu_t * mu_t + c1;
+  const float d2 = sigma_p + sigma_t + c2;
+  const float nn = n1 * n2;
+  const float dd = d1 * d2;
+  const float raw = (1.0f - nn / dd) * 0.5f;
+  // clip's gradient: the SSIM term is dead where it is clamped
+  const float gl = (raw > 0.0f && raw < 1.0f) ? g * k_ssim : 0.0f;
+  const float inv_dd = 1.0f / dd;
+  const float dl_dn = (-0.5f * gl) * inv_dd;
+  const float dl_dd = (((0.5f * gl) * nn) * inv_dd) * inv_dd;
+  SsimCoefs cf;
+  cf.mu_p = ((dl_dn * 2.0f) * mu_t) * (n2 - n1) +
+            ((dl_dd * 2.0f) * mu_p) * (d2 - d1);
+  cf.mu_t = ((dl_dn * 2.0f) * mu_p) * (n2 - n1) +
+            ((dl_dd * 2.0f) * mu_t) * (d2 - d1);
+  cf.sq = dl_dd * d1;
+  cf.pt = (dl_dn * 2.0f) * n1;
+  return cf;
+}
+
+// The coefficient planes of three vertically consecutive one-pixel-halo
+// positions (hy0 .. hy0 + 2, hx) of every channel, from window_sums of the
+// two-pixel-halo planes sp, st (C planes each) of the tile whose first
+// image row and column are y0, x0: NP planes of C * kHalo1 floats each at
+// cf, c_mu_p, c_sq, c_pt and, for NP = 4, c_mu_t; zero outside the image.
+// g_at(y, x) is the upstream gradient at image pixel (y, x).
+template <int C, int NP, typename G>
+__device__ __forceinline__ void coef_column(const float* sp, const float* st,
+                                            float* cf, G g_at, int y0,
+                                            int x0, int hy0, int hx, int H,
+                                            int W, float k_ssim) {
+  constexpr int N = 3;
+  constexpr int nc = C * kHalo1;
+  const int x = x0 - 1 + hx;
+  const float ninth = 1.0f / 9.0f;
+  bool in[N];
+  float gv[N];
+  for (int n = 0; n < N; ++n) {
+    const int y = y0 - 1 + hy0 + n;
+    in[n] = y >= 0 && y < H && x >= 0 && x < W;
+    gv[n] = in[n] ? g_at(y, x) : 0.0f;
+  }
+  for (int c = 0; c < C; ++c) {
+    const int o2 = c * kHalo2 + hy0 * kCols2 + hx;
+    float m[N][5];
+    window_sums<N, kCols2>(sp + o2, st + o2, m);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      SsimCoefs k = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (in[n]) {
+        k = ssim_coefs_of_means(m[n][0] * ninth, m[n][1] * ninth,
+                                m[n][2] * ninth, m[n][3] * ninth,
+                                m[n][4] * ninth, gv[n], k_ssim);
+      }
+      const int o = c * kHalo1 + (hy0 + n) * kCols1 + hx;
+      cf[o] = k.mu_p;
+      cf[nc + o] = k.sq;
+      cf[2 * nc + o] = k.pt;
+      if (NP == 4) cf[3 * nc + o] = k.mu_t;
+    }
+  }
+}
+
+// The NP coefficient planes of coef_column on the whole one-pixel halo,
+// three positions of a column per thread: warps 0-5 take the 32 interior
+// columns, twelve threads of warp 6 the two side columns. Every thread of
+// the block calls it.
+template <int C, int NP, typename G>
+__device__ __forceinline__ void coef_planes(const float* sp, const float* st,
+                                            float* cf, G g_at, int y0,
+                                            int x0, int H, int W,
+                                            float k_ssim) {
+  constexpr int kTriples = kRows1 / 3;
+  static_assert(kRows1 % 3 == 0 && kTriples < kTallWarps, "tile");
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  if (warp < kTriples) {
+    coef_column<C, NP>(sp, st, cf, g_at, y0, x0, 3 * warp, 1 + lane, H, W,
+                       k_ssim);
+  } else if (warp == kTriples && lane < 2 * kTriples) {
+    coef_column<C, NP>(sp, st, cf, g_at, y0, x0, 3 * (lane / 2),
+                       lane % 2 ? kCols1 - 1 : 0, H, W, k_ssim);
+  }
+}
+
+// The adjoint A of the reflect-padded 3x3 mean at two vertically adjacent
+// image pixels (i, j) and (i + 1, j), from a coefficient plane c with rows
+// of S floats in which (i, j) sits at (ty + 1, tx + 1): each row's three
+// columns summed (centre, left, right) with the second deposit on columns
+// 1 and W - 2, then three rows top to bottom with the deposit on rows 1 and
+// H - 2, times 1/9, as ops/kernels/reproj_loss.py _adj3; the row sums of
+// the two middle rows serve both pixels.
+template <int S>
+__device__ __forceinline__ void adj3_pair(const float* c, int tx, int ty,
+                                          int i, int j, int H, int W,
+                                          float* a, float* b) {
+  float s[4];
+  for (int dy = 0; dy < 4; ++dy) {
+    const float* r = c + (ty + dy) * S + tx;
+    float v = r[1] + r[0] + r[2];
+    if (j == 1) v = v + r[0];
+    if (j == W - 2) v = v + r[2];
+    s[dy] = v;
+  }
+  float oa = s[0] + s[1] + s[2];
+  if (i == 1) oa = oa + s[0];
+  if (i == H - 2) oa = oa + s[2];
+  float ob = s[1] + s[2] + s[3];
+  if (i + 1 == 1) ob = ob + s[1];
+  if (i + 1 == H - 2) ob = ob + s[3];
+  *a = oa * (1.0f / 9.0f);
+  *b = ob * (1.0f / 9.0f);
 }
 
 }  // namespace upe

@@ -35,54 +35,13 @@
 
 namespace {
 
-constexpr int kRows2 = upe::kTallH + 4;  // two-pixel halo
-constexpr int kCols2 = upe::kTallW + 4;
-constexpr int kHalo2 = kRows2 * kCols2;
-constexpr int kRows1 = upe::kTallH + 2;  // one-pixel halo
-constexpr int kCols1 = upe::kTallW + 2;
-constexpr int kHalo1 = kRows1 * kCols1;
+using upe::kCols1;
+using upe::kCols2;
+using upe::kHalo1;
+using upe::kHalo2;
 
 template <int C>
 constexpr size_t kSmemBytes = (2 * C * kHalo2 + 3 * C * kHalo1) * sizeof(float);
-
-// The coefficient planes (c_mu_p, c_sq, c_pt; zero outside the image, the
-// adjoint's padding) of three vertically consecutive one-pixel-halo
-// positions (hy0 .. hy0 + 2, hx), every channel, from upe::window_sums.
-template <int C>
-__device__ __forceinline__ void coef_column(const float* sp, const float* st,
-                                            float* cf, const float* gb,
-                                            int y0, int x0, int hy0, int hx,
-                                            int H, int W, float k_ssim) {
-  constexpr int N = 3;
-  const int nc = C * kHalo1;
-  const int x = x0 - 1 + hx;
-  const float ninth = 1.0f / 9.0f;
-  bool in[N];
-  float gv[N];
-  for (int n = 0; n < N; ++n) {
-    const int y = y0 - 1 + hy0 + n;
-    in[n] = y >= 0 && y < H && x >= 0 && x < W;
-    gv[n] = in[n] ? gb[(long long)y * W + x] : 0.0f;
-  }
-  for (int c = 0; c < C; ++c) {
-    const int o2 = c * kHalo2 + hy0 * kCols2 + hx;
-    float m[N][5];
-    upe::window_sums<N, kCols2>(sp + o2, st + o2, m);
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      upe::SsimCoefs k = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (in[n]) {
-        k = upe::ssim_coefs_of_means(m[n][0] * ninth, m[n][1] * ninth,
-                                     m[n][2] * ninth, m[n][3] * ninth,
-                                     m[n][4] * ninth, gv[n], k_ssim);
-      }
-      const int o = c * kHalo1 + (hy0 + n) * kCols1 + hx;
-      cf[o] = k.mu_p;
-      cf[nc + o] = k.sq;
-      cf[2 * nc + o] = k.pt;
-    }
-  }
-}
 
 template <int C>
 __global__ void __launch_bounds__(upe::kTallW * upe::kTallWarps, 4)
@@ -104,21 +63,13 @@ __global__ void __launch_bounds__(upe::kTallW * upe::kTallWarps, 4)
   const float* gb = g + (long long)b * plane;
   const int lane = threadIdx.x, warp = threadIdx.y;
 
-  upe::stage_warp_and_target<C, 2, kRows2>(sp, st, image, grid, target, b,
-                                           y0 - 2, x0, H, W, vec);
+  upe::stage_warp_and_target<C, 2, upe::kRows2>(sp, st, image, grid, target,
+                                                b, y0 - 2, x0, H, W, vec);
   __syncthreads();
 
-  // the coefficient planes, three positions of a column per thread: warps
-  // 0-5 take the 32 interior columns, twelve threads of warp 6 the two
-  // side columns
-  constexpr int kTriples = kRows1 / 3;
-  static_assert(kRows1 % 3 == 0 && kTriples < upe::kTallWarps, "tile");
-  if (warp < kTriples) {
-    coef_column<C>(sp, st, cf, gb, y0, x0, 3 * warp, 1 + lane, H, W, k_ssim);
-  } else if (warp == kTriples && lane < 2 * kTriples) {
-    coef_column<C>(sp, st, cf, gb, y0, x0, 3 * (lane / 2),
-                   lane % 2 ? kCols1 - 1 : 0, H, W, k_ssim);
-  }
+  upe::coef_planes<C, 3>(
+      sp, st, cf, [&](int y, int x) { return gb[(long long)y * W + x]; }, y0,
+      x0, H, W, k_ssim);
   __syncthreads();
 
   // each thread: tile rows 2 warp and 2 warp + 1 of column lane

@@ -3,10 +3,14 @@ its backward.
 
 CUDA kernels: ``csrc/reproj_loss.cu`` (K3, forward) replaces the TPU kernel
 ``unsupervised_pose_estimation_tpu/ops/pallas/reproj_loss.py::_kernel``;
-``csrc/reproj_loss_bwd.cu`` (K4, backward) replaces its ``_bwd_kernel``. On
+``csrc/reproj_loss_bwd.cu`` (K4, backward) replaces its ``_bwd_kernel``.
+Both run on the 32 x 16 tile of ``csrc/common.cuh`` with every channel
+staged at once (1-4 channels). K4 writes the target's gradient only when
+asked (``with_target``): the training step's targets are input frames. On
 an H100 both are bound by bytes at B=12, C=3, 192x640: K3 moves 41.3 MB
-(12.3 us at 3.35 TB/s), K4 76.7 MB (22.9 us). ``reproj_loss_op`` is the
-differentiable op: K3 forward, K4 backward.
+(12.3 us at 3.35 TB/s), K4 59.0 MB (17.6 us), or 76.7 MB (22.9 us) with
+the target's gradient. ``reproj_loss_op`` is the differentiable op: K3
+forward, K4 backward.
 """
 
 from __future__ import annotations
@@ -26,6 +30,13 @@ def _check(pred, target):
                          f"{tuple(pred.shape)} and {tuple(target.shape)}")
     if pred.shape[2] < 2 or pred.shape[3] < 2:
         raise ValueError("reproj_loss: planes must be at least 2x2")
+
+
+def check_channels(name, c):
+    """The CUDA kernels of the SSIM/L1 loss take 1-4 channels."""
+    if not 1 <= c <= 4:
+        raise ValueError(f"{name}: the CUDA kernel takes 1-4 channels, got "
+                         f"{c}")
 
 
 def _check_grad(g, pred):
@@ -63,6 +74,7 @@ def reproj_loss(pred, target):
     if not _lib.on_cuda("reproj_loss", pred, target):
         return reproj_loss_plain(pred, target)
     b, c, h, w = pred.shape
+    check_channels("reproj_loss", c)
     out = torch.empty((b, h, w, 1), dtype=torch.float32, device=pred.device)
     with torch.cuda.device(pred.device):
         _lib.launch("reproj_loss", "upe_reproj_loss", pred.data_ptr(),
@@ -133,35 +145,40 @@ def ssim_l1_grads_plain(pred, target, g, with_target: bool = True):
     return gp, gt
 
 
-def reproj_loss_bwd_plain(pred, target, g):
+def reproj_loss_bwd_plain(pred, target, g, with_target: bool = True):
     """Plain PyTorch version of the backward kernel: planar (B, C, H, W)
     float32 prediction and target, upstream gradient g (B, H, W) ->
-    (dL/dpred, dL/dtarget), each (B, C, H, W)."""
+    (dL/dpred, dL/dtarget), each (B, C, H, W); dL/dtarget is None without
+    ``with_target``."""
     _check(pred, target)
     _check_grad(g, pred)
-    return ssim_l1_grads_plain(pred, target, g)
+    return ssim_l1_grads_plain(pred, target, g, with_target)
 
 
-def reproj_loss_bwd(pred, target, g):
+def reproj_loss_bwd(pred, target, g, with_target: bool = True):
     """The backward of :func:`reproj_loss_bwd_plain`: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors (without ``with_target``, its instance that forms and
+    writes no target gradient), the plain version for CPU tensors."""
     _check(pred, target)
     _check_grad(g, pred)
     if not _lib.on_cuda("reproj_loss_bwd", pred, target, g):
-        return reproj_loss_bwd_plain(pred, target, g)
+        return reproj_loss_bwd_plain(pred, target, g, with_target)
     b, c, h, w = pred.shape
-    gp, gt = (torch.empty_like(pred) for _ in range(2))
+    check_channels("reproj_loss_bwd", c)
+    gp = torch.empty_like(pred)
+    gt = torch.empty_like(pred) if with_target else None
     with torch.cuda.device(pred.device):
         _lib.launch("reproj_loss_bwd", "upe_reproj_loss_bwd",
                     pred.data_ptr(), target.data_ptr(), g.data_ptr(),
-                    gp.data_ptr(), gt.data_ptr(), b, c, h, w,
-                    _lib.stream_of(pred))
+                    gp.data_ptr(), None if gt is None else gt.data_ptr(),
+                    b, c, h, w, _lib.stream_of(pred))
     return gp, gt
 
 
 class ReprojLoss(torch.autograd.Function):
     """K3 forward, K4 backward (the JAX package's custom_vjp of
-    ``reprojection_loss_pallas_planar``)."""
+    ``reprojection_loss_pallas_planar``). The target's gradient is formed
+    only when it is recorded."""
 
     @staticmethod
     def forward(ctx, pred, target):
@@ -171,9 +188,9 @@ class ReprojLoss(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         pred, target = ctx.saved_tensors
-        gp, gt = reproj_loss_bwd(pred, target, grad[..., 0].contiguous())
-        return (gp if ctx.needs_input_grad[0] else None,
-                gt if ctx.needs_input_grad[1] else None)
+        gp, gt = reproj_loss_bwd(pred, target, grad[..., 0].contiguous(),
+                                 with_target=ctx.needs_input_grad[1])
+        return gp if ctx.needs_input_grad[0] else None, gt
 
 
 def reproj_loss_op(pred, target):

@@ -1,6 +1,8 @@
-"""Device time of the fused warp + SSIM/L1 pair (K1 forward, K2 backward),
-warm and with a cold L2, and the peak device memory of the fused training
-step, at the main path's shapes on a CUDA card.
+"""Device time of the SSIM/L1 kernels, warm and with a cold L2: the fused
+warp + loss pair (K1 forward, K2 backward) and the loss of a warped plane
+(K3 forward, K4 backward); and the peak device memory and wall time of the
+training step in both warp + loss modes; at the main path's shapes on a
+CUDA card.
 
     python3 unsupervised_pose_estimation_tpu_torch/time_fused_loss.py \
         [--tree DIR]
@@ -10,10 +12,15 @@ file is in), for example the parent commit unpacked with ``git archive``.
 To compare two trees, run both in one chip call, in turns (parent, change,
 change, parent). A tree whose K1 still has the residual mode, whose K2 then
 reads K1's warped / ddx / ddy planes, is timed in that mode as well, since
-its training step ran K1 so. Inputs are ``chip_smoke.py`` phase 2's (seed 0,
-small-motion grid, B=12, C=3, 192x640); the training step is phase 5's
-(batch 12, 640x192, seed-0 weights, three fused steps after a reset of the
-peak-memory count). Timing and bounds are ``chip_smoke.py``'s ``cuda_ms``
+its training step ran K1 so. K4 is timed with both gradients (``k4``) and,
+in a tree whose K4 takes ``with_target``, without the target's
+(``k4_gp_only``), the training step's mode. Inputs are ``chip_smoke.py``
+phase 2's (seed 0, small-motion grid, B=12, C=3, 192x640; K3 and K4 score
+K5's warp of the frame against the target); the training step is phase 5's
+(batch 12, 640x192, seed-0 weights; three fused steps, then three unfused
+ones, each mode after a reset of the peak-memory count). Per step, the
+fused mode runs K1 and K2 eight times each (and K3 twice), the unfused
+mode K3 ten times and K4 eight. Timing and bounds are ``chip_smoke.py``'s ``cuda_ms``
 (warm: 20 launches back to back after 3 warm-ups) and ``cuda_ms_cold``
 (the L2 flushed before each launch). Prints the card's name and power
 limit, then one JSON line.
@@ -104,30 +111,52 @@ def main() -> int:
     grads = K.warp_reproj_loss_bwd(*bwd_args)
     record("k2", lambda: K.warp_reproj_loss_bwd(*bwd_args),
            smoke.nbytes(*bwd_args, *grads))
-    del src, target, small, g_up, loss, bwd_args, grads
+    warped = K.warp(src, small)[0]
+    loss = K.reproj_loss(warped, target)
+    record("k3", lambda: K.reproj_loss(warped, target),
+           smoke.nbytes(warped, target, loss))
+    grads = K.reproj_loss_bwd(warped, target, g_up)
+    record("k4", lambda: K.reproj_loss_bwd(warped, target, g_up),
+           smoke.nbytes(warped, target, g_up, *grads))
+    if "with_target" in inspect.signature(K.reproj_loss_bwd).parameters:
+        gp = K.reproj_loss_bwd(warped, target, g_up, with_target=False)[0]
+        record("k4_gp_only", lambda: K.reproj_loss_bwd(
+            warped, target, g_up, with_target=False),
+            smoke.nbytes(warped, target, g_up, gp))
+        del gp
+    del src, target, small, g_up, loss, bwd_args, grads, warped
     pair = {t: records[train_k1][t] + records["k2"][t]
             for t in ("warm_ms", "cold_ms")}
 
+    train_k4 = "k4_gp_only" if "k4_gp_only" in records else "k4"
+    loss_pair = {t: 10 * records["k3"][t] + 8 * records[train_k4][t]
+                 for t in ("warm_ms", "cold_ms")}
+
     bundle = ModelBundle.create(smoke.smoke_options(), seed=0, device="cuda")
-    bundle.cfg.use_pallas_warp_loss = True
     state = create_train_state(bundle)
     step = build_train_step(bundle)
     batch = smoke.train_batch(torch.Generator().manual_seed(6), "cuda")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = []
-    for _ in range(3):
-        start = time.perf_counter()
-        step(state, batch)
+    steps = {}
+    for mode, fused in (("fused", True), ("unfused", False)):
+        bundle.cfg.use_pallas_warp_loss = fused
         torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - start))
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        for _ in range(3):
+            start = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - start))
+        steps[f"{mode}_step_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                          / 2**30)
+        steps[f"{mode}_step_wall_ms"] = step_ms
     print(json.dumps({
         "tree": str(tree), "device": torch.cuda.get_device_name(0),
         "kernels": records, "train_k1": train_k1,
         "pair_per_call_ms": pair,
         "pair_per_step_ms": {t: 8 * v for t, v in pair.items()},
-        "fused_step_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "fused_step_wall_ms": step_ms}), flush=True)
+        "train_k4": train_k4,
+        "k3_k4_per_unfused_step_ms": loss_pair, **steps}), flush=True)
     return 0
 
 
