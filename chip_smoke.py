@@ -29,9 +29,13 @@ Phases, each timed on its own line:
    on the same weights, noise and augmentation at a small size;
 6. the warp ladder of ``pallas_warp_version`` 1-7: the corner-fetch
    kernels K6 (narrow and wide band, per-block and per-row band starts),
-   K7 and K8 against their plain versions on grids that meet their gates,
-   timed like phase 2; each version's rung on a small-motion grid (its top
-   rung), a vertical wave (wide-band v3) and the wild grid (the gather);
+   K7 and K8 against their plain versions on grids that meet their gates
+   and on the wild grid, timed like phase 2; K7 and K8 also with index
+   tensors that are not 16-byte aligned, and at B=2, 32x70 (K7: a ragged
+   last run of pixels) and B=1, 24x256 (K8: a last row block hanging past
+   the image) with 3, 1 and 4 channels; each version's rung on a
+   small-motion grid (its top rung), a vertical wave (wide-band v3) and
+   the wild grid (the gather);
    one training step at version 6 on the card against the CPU at a small
    size; then at batch 12, 640x192, one validation step at version 4, one
    at version 6 and three training steps at version 7, with each step's
@@ -767,64 +771,130 @@ def wave_grid(device):
     return grid.contiguous().to(device)
 
 
+def rung_inputs(grid, version, rung, gate=True):
+    """The indices ``rung`` of ``version``'s ladder gives its corner fetch
+    for ``grid`` (the main path's shapes): x0i, yl, ymin, band; raises if
+    ``gate`` and the grid misses the rung's gate."""
+    from unsupervised_pose_estimation_tpu_torch.ops.kernels.corners import \
+        expand_starts
+    from unsupervised_pose_estimation_tpu_torch.ops.kernels.warp import (
+        ladder, taps)
+
+    _, _, h, w = grid.shape
+    x0i, y0i, _, _ = taps(grid)
+    rungs = {r[0]: r for r in ladder(version, True, x0i, y0i, h, w)}
+    _, ymin, band, ok = rungs[rung]
+    if gate and not bool(ok):
+        raise AssertionError(f"the grid misses the gate of {rung}")
+    return x0i, y0i - expand_starts(ymin, h, w), ymin, band
+
+
+def packed_inputs(name, grid):
+    """K7's or K8's indices for ``grid`` at any shape its wrapper takes
+    (the ladder's needs W % 128 == 0): band starts as the ladder forms
+    them, one per 16 rows (K7, band min(40, H)) or per row and 128-column
+    chunk (K8, band 16); -> the wrapper's index arguments."""
+    from unsupervised_pose_estimation_tpu_torch.ops.kernels.corners import \
+        expand_starts
+    from unsupervised_pose_estimation_tpu_torch.ops.kernels.warp import (
+        _band, taps)
+
+    b, _, h, w = grid.shape
+    x0i, y0i, _, _ = taps(grid)
+    if name == "fetch_corners_packed":
+        band = min(40, h)
+        blocks = y0i.reshape(b, h // 16, 16 * w)
+        ymin = _band(blocks.amin(2), blocks.amax(2), h, band)[0][..., None]
+        return x0i, y0i - expand_starts(ymin, h, w), ymin, band
+    blocks = y0i.reshape(b, h, w // 128, 128)
+    ymin = _band(blocks.amin(3), blocks.amax(3), h, 16)[0]
+    return x0i, y0i - expand_starts(ymin, h, w), ymin
+
+
+def offset_view(t):
+    """A contiguous copy of ``t`` one element into its storage, so that its
+    data pointer is not 16-byte aligned."""
+    buf = t.new_empty(t.numel() + 1)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    if view.data_ptr() % 16 == 0:
+        raise AssertionError("the offset view is 16-byte aligned")
+    return view
+
+
+# K7 and K8 at shapes that reach the packed kernel's edge paths: a ragged
+# last run (W=70: 8 runs of 8 and one of 6), a last row block hanging past
+# the image (H=24 on 16-row blocks), 1 and 4 channels; (name, B, H, W, C)
+PACKED_EDGES = [("fetch_corners_packed", 2, 32, 70, c) for c in (3, 1, 4)] + [
+    ("fetch_corners_packed_v7", 1, 24, 256, c) for c in (3, 1, 4)]
+
+
 def check_corner_kernels(src, small, wave, wild):
     """K6 (narrow band, wide band, per-row starts), K7 and K8 against their
     plain versions, on a grid that meets the rung's gate and on the wild
     grid (where the gate fails and the ladder would not call them, but
-    kernel and plain version still gather the same clamped taps); ->
-    {name: record}."""
+    kernel and plain version still gather the same clamped taps); K7 and K8
+    also at the PACKED_EDGES shapes and with index tensors that are not
+    16-byte aligned, each on a small-motion and a wild grid; -> {name:
+    record}."""
+    import torch
+
     from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
-    from unsupervised_pose_estimation_tpu_torch.ops.kernels.corners import \
-        expand_starts
-    from unsupervised_pose_estimation_tpu_torch.ops.kernels.warp import (
-        frame_planes, ladder, taps)
+    from unsupervised_pose_estimation_tpu_torch.ops.kernels.warp import \
+        frame_planes
 
     planes = frame_planes(src).reshape(B * C, H, W)
-    calls = {}  # name -> (kernel, plain, args) at the main path's shapes
+    pairs = {"fetch_corners": (K.fetch_corners, K.fetch_corners_plain),
+             "fetch_corners_packed": (K.fetch_corners_packed,
+                                      K.fetch_corners_packed_plain),
+             "fetch_corners_packed_v7": (K.fetch_corners_packed_v7,
+                                         K.fetch_corners_packed_v7_plain)}
+    errs = {name: 0.0 for name in CORNER_KERNELS}
 
-    def inputs(grid, version, rung, gate=True):
-        x0i, y0i, _, _ = taps(grid)
-        rungs = {r[0]: r for r in ladder(version, True, x0i, y0i, H, W)}
-        _, ymin, band, ok = rungs[rung]
-        if gate and not bool(ok):
-            raise AssertionError(f"the grid misses the gate of {rung}")
-        return x0i, y0i - expand_starts(ymin, H, W), ymin, band
+    def compare(name, args, tag):
+        kern, plain = pairs[name]
+        got, want = kern(*args), plain(*args)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        print(f"  {name:24s} {tag:24s} max_abs_err {err:.3e} (tol 0)",
+              flush=True)
+        if err != 0.0 or any(a.dtype != b.dtype for a, b in zip(got, want)):
+            raise AssertionError(f"{name} ({tag}) disagrees with its plain "
+                                 f"version: {err}")
+        errs[name] = max(errs[name], err)
 
     cases = [("fetch_corners", "v4", 4, small, "narrow"),
              ("fetch_corners", "v3_wide", 3, wave, "wide"),
              ("fetch_corners", "v2", 2, small, "per-row"),
              ("fetch_corners_packed", "v6", 6, small, "small"),
              ("fetch_corners_packed_v7", "v7", 7, small, "small")]
-    errs = {name: 0.0 for name in CORNER_KERNELS}
+    calls = {}  # name -> args at the main path's shapes
     for name, rung, version, grid, label in cases:
         for g, tag, gate in ((grid, label, True), (wild, label + "/wild",
                                                     False)):
-            x0i, yl, ymin, band = inputs(g, version, rung, gate)
-            if name == "fetch_corners":
-                args = (planes, x0i, yl, ymin, band)
-                kern, plain = K.fetch_corners, K.fetch_corners_plain
-            elif name == "fetch_corners_packed":
-                args = (src, x0i, yl, ymin, band)
-                kern, plain = (K.fetch_corners_packed,
-                               K.fetch_corners_packed_plain)
-            else:
-                args = (src, x0i, yl, ymin)
-                kern, plain = (K.fetch_corners_packed_v7,
-                               K.fetch_corners_packed_v7_plain)
-            got, want = kern(*args), plain(*args)
-            err = max(float((a.float() - b.float()).abs().max())
-                      for a, b in zip(got, want))
-            print(f"  {name:24s} {tag:13s} max_abs_err {err:.3e} (tol 0)",
-                  flush=True)
-            if err != 0.0 or any(a.dtype != b.dtype for a, b in zip(got,
-                                                                    want)):
-                raise AssertionError(f"{name} ({tag}) disagrees with its "
-                                     f"plain version: {err}")
-            errs[name] = max(errs[name], err)
+            x0i, yl, ymin, band = rung_inputs(g, version, rung, gate)
+            first = (planes if name == "fetch_corners" else src,
+                     x0i, yl, ymin)
+            args = first if name == "fetch_corners_packed_v7" else (
+                *first, band)
+            compare(name, args, tag)
+            if name != "fetch_corners":
+                compare(name, (args[0], offset_view(x0i), offset_view(yl),
+                               *args[3:]), tag + "/offset")
             if gate and name not in calls:
-                calls[name] = (kern, plain, args)
+                calls[name] = args
+    gen = torch.Generator().manual_seed(20)
+    for name, b, h, w, c in PACKED_EDGES:
+        image, _, e_small, e_wild = make_inputs(gen, src.device, b, h, w, c)
+        for g, label in ((e_small, "small"), (e_wild, "wild")):
+            x0i, yl, *rest = packed_inputs(name, g)
+            tag = f"{b}x{h}x{w}x{c}/{label}"
+            compare(name, (image, x0i, yl, *rest), tag)
+            compare(name, (image, offset_view(x0i), offset_view(yl), *rest),
+                    tag + "/offset")
     records = {}
-    for name, (kern, plain, args) in calls.items():
+    for name, args in calls.items():
+        kern, plain = pairs[name]
         records[name] = rec = dict(
             max_abs_err=errs[name], ms=cuda_ms(lambda: kern(*args)),
             cold_ms=cuda_ms_cold(lambda: kern(*args)),

@@ -9,7 +9,9 @@ taps, and a gather does no arithmetic, so the port must agree bit for bit.
 The band starts and band-local rows are computed here with numpy, by the
 reference's formulas, and the gates are asserted before the comparison.
 The CUDA kernels are compared with these plain versions on the card by
-``chip_smoke.py``.
+``chip_smoke.py``, also at shapes the Pallas kernels do not take (W not a
+multiple of 128, H not a multiple of 16): there the packed plain versions
+are held against a direct gather, one pixel at a time.
 """
 
 import jax.numpy as jnp
@@ -17,8 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from unsupervised_pose_estimation_tpu.ops.pallas import warp_kernel as wk
 from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+from unsupervised_pose_estimation_tpu_torch.ops.kernels import _lib
 
 C = 3
 
@@ -143,6 +148,87 @@ def test_fetch_corners_packed_plain_matches_pallas(version):
         assert g.dtype == torch.bfloat16 and g.shape == (b, C * h, w)
         np.testing.assert_array_equal(g.float().numpy(),
                                       np.asarray(w_.astype(jnp.float32)))
+
+
+def direct_gather(image, x0, yl, ymin, band, rows, cols):
+    """``image[b, row, col, ch]`` at each pixel's four taps, one pixel at a
+    time, with the wrappers' clips and clamps: ymin (B, H / rows, W / cols)
+    -> four (B, C * H, W) float32 planes."""
+    b, h, w, c = image.shape
+    out = np.zeros((4, b, c, h, w), np.float32)
+    for bi in range(b):
+        for i in range(h):
+            for j in range(w):
+                start = ymin[bi, i // rows, j // cols]
+                row = min(max(start + min(max(yl[bi, i, j], 0), band - 2),
+                              0), h - 2)
+                col = min(max(x0[bi, i, j], 0), w - 2)
+                for q, (dr, dc) in enumerate(((0, 0), (0, 1), (1, 0),
+                                              (1, 1))):
+                    out[q, bi, :, i, j] = image[bi, row + dr, col + dc]
+    return out.reshape(4, b, c * h, w)
+
+
+# The packed kernel's edge shapes, which chip_smoke.py runs on the card:
+# K7 with a ragged last run of 6 pixels (W=70), K8 with a last 16-row
+# block hanging past the image (H=24); 1, 3 and 4 channels. The Pallas
+# kernels need W % 128 == 0, so these rest on the direct gather.
+EDGE_CASES = [(6 if name == "fetch_corners_packed" else 7, *shape)
+              for name, *shape in chip_smoke.PACKED_EDGES]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES,
+                         ids=[f"v{c[0]}-{c[2]}x{c[3]}x{c[4]}"
+                              for c in EDGE_CASES])
+def test_packed_plain_matches_a_direct_gather(case):
+    version, b, h, w, c = case
+    rng = np.random.default_rng(100 + h + w + c)
+    image = rng.integers(0, 256, size=(b, h, w, c)).astype(np.uint8)
+    # indices past the band and the image on both sides, as a wild grid
+    x0 = rng.integers(-3, w + 3, size=(b, h, w)).astype(np.int32)
+    if version == 6:
+        band, rows, cols = min(40, h), 16, w
+        ymin = rng.integers(-2, h, size=(b, h // 16, 1)).astype(np.int32)
+    else:
+        band, rows, cols = 16, 1, 128
+        ymin = rng.integers(-2, h, size=(b, h, w // 128)).astype(np.int32)
+    yl = rng.integers(-3, band + 3, size=(b, h, w)).astype(np.int32)
+    want = direct_gather(image, x0, yl, ymin, band, rows, cols)
+    # and index tensors one element into their storage, as chip_smoke.py
+    # feeds the card's kernels (not 16-byte aligned)
+    for idx in (as_torch(x0, yl), [chip_smoke.offset_view(t)
+                                   for t in as_torch(x0, yl)]):
+        args = (torch.from_numpy(image), *idx, torch.from_numpy(ymin))
+        if version == 6:
+            got = K.fetch_corners_packed_plain(*args, band)
+            wrapped = K.fetch_corners_packed(*args, band)
+        else:
+            got = K.fetch_corners_packed_v7_plain(*args)
+            wrapped = K.fetch_corners_packed_v7(*args)
+        for g, r, w_ in zip(got, wrapped, want):
+            assert g.dtype == torch.bfloat16 and g.shape == (b, c * h, w)
+            np.testing.assert_array_equal(g.float().numpy(), w_)
+            assert torch.equal(r, g)
+
+
+def test_cuda_channel_check():
+    """The card's K1-K4, K7 and K8 take 1-4 channels (the check runs only
+    on CUDA tensors, after the CPU's plain version has been ruled out);
+    the plain versions take any."""
+    for c in (1, 2, 3, 4):
+        _lib.check_channels("fetch_corners_packed", c)
+    for c in (0, 5):
+        with pytest.raises(ValueError, match="1-4 channels"):
+            _lib.check_channels("fetch_corners_packed", c)
+    b, h, w, c = 1, 16, 128, 5
+    image = torch.randint(0, 256, (b, h, w, c), dtype=torch.uint8)
+    idx = torch.zeros((b, h, w), dtype=torch.int32)
+    taps = K.fetch_corners_packed(image, idx, idx,
+                                  torch.zeros((b, 1, 1), dtype=torch.int32),
+                                  16)
+    assert torch.equal(taps[0].reshape(b, c, h, w)[:, :, :, 0],
+                       image[:, 0, 0, :, None].to(torch.bfloat16)
+                       .expand(b, c, h))
 
 
 def test_corner_reads_stay_in_the_source():

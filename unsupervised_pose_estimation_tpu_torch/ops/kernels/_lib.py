@@ -168,6 +168,14 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def check_channels(name: str, c: int) -> None:
+    """The CUDA kernels that hold the channels in template instances (K1-K4,
+    K7, K8) take 1-4 channels."""
+    if not 1 <= c <= 4:
+        raise ValueError(f"{name}: the CUDA kernel takes 1-4 channels, got "
+                         f"{c}")
+
+
 def on_cuda(name: str, *tensors) -> bool:
     """True if every tensor is on one CUDA device, False if every one is on
     the CPU; raises on a mix, on non-contiguous inputs and on inputs that

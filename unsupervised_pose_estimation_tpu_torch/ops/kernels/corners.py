@@ -10,10 +10,12 @@ CUDA kernels: ``csrc/corners.cu``. They replace the corner-fetch kernels of
 - ``fetch_corners_packed_v7`` (K8): ``_fetch_corners_packed_v7`` (v7).
 
 K7 and K8 read the uint8 frame itself where the JAX kernels read its raw
-0..255 float32 copy, and return the same bfloat16 planes. All three share
-one device function and differ in the layout of the band starts ``ymin``.
-On an H100 they are bound by bytes (a gather does no arithmetic): at B=12,
-C=3, 192x640 K6 moves 100 MB (30 us at 3.35 TB/s), K7 and K8 52 MB (15 us).
+0..255 float32 copy, and return the same bfloat16 planes. They are one
+CUDA kernel, a template over the layout of the band starts ``ymin`` and
+over C (1-4 on the card; the plain versions take any C), in which a thread
+owns a run of 8 pixels of a row. On an H100 they are bound by bytes (a
+gather does no arithmetic): at B=12, C=3, 192x640 K6 moves 100 MB (30 us at
+3.35 TB/s), K7 and K8 52 MB (15 us).
 
 Each output pixel's taps are ``src[row + {0, 1}, x0i + {0, 1}]`` with
 ``row = ymin + clip(yl, 0, band - 2)``, ``ymin`` being the start of the
@@ -151,6 +153,10 @@ def _packed(name, image, x0i, yl, ymin, band):
     _check_band(name, band, h)
     if not _lib.on_cuda(name, image, x0i, yl, ymin):
         return _packed_plain(name, image, x0i, yl, ymin, band)
+    _lib.check_channels(name, c)
+    if h * w * c >= 2**31:
+        raise ValueError(f"{name}: a frame of {h}x{w}x{c} bytes is past the "
+                         f"kernel's 32-bit offsets")
     out = [torch.empty((b, c * h, w), dtype=torch.bfloat16,
                        device=image.device) for _ in range(4)]
     with torch.cuda.device(image.device):

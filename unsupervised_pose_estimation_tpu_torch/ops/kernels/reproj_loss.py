@@ -32,13 +32,6 @@ def _check(pred, target):
         raise ValueError("reproj_loss: planes must be at least 2x2")
 
 
-def check_channels(name, c):
-    """The CUDA kernels of the SSIM/L1 loss take 1-4 channels."""
-    if not 1 <= c <= 4:
-        raise ValueError(f"{name}: the CUDA kernel takes 1-4 channels, got "
-                         f"{c}")
-
-
 def _check_grad(g, pred):
     b, _, h, w = pred.shape
     if g.dtype != torch.float32 or tuple(g.shape) != (b, h, w):
@@ -74,7 +67,7 @@ def reproj_loss(pred, target):
     if not _lib.on_cuda("reproj_loss", pred, target):
         return reproj_loss_plain(pred, target)
     b, c, h, w = pred.shape
-    check_channels("reproj_loss", c)
+    _lib.check_channels("reproj_loss", c)
     out = torch.empty((b, h, w, 1), dtype=torch.float32, device=pred.device)
     with torch.cuda.device(pred.device):
         _lib.launch("reproj_loss", "upe_reproj_loss", pred.data_ptr(),
@@ -164,7 +157,7 @@ def reproj_loss_bwd(pred, target, g, with_target: bool = True):
     if not _lib.on_cuda("reproj_loss_bwd", pred, target, g):
         return reproj_loss_bwd_plain(pred, target, g, with_target)
     b, c, h, w = pred.shape
-    check_channels("reproj_loss_bwd", c)
+    _lib.check_channels("reproj_loss_bwd", c)
     gp = torch.empty_like(pred)
     gt = torch.empty_like(pred) if with_target else None
     with torch.cuda.device(pred.device):

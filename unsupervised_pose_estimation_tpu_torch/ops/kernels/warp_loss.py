@@ -20,7 +20,7 @@ import torch
 
 from ..warp import grid_cotangent
 from . import _lib
-from .reproj_loss import check_channels, score_plain, ssim_l1_grads_plain
+from .reproj_loss import score_plain, ssim_l1_grads_plain
 from .warp import _check as _check_warp, warp_plain
 
 
@@ -56,7 +56,7 @@ def warp_reproj_loss(image, grid, target):
     if not _lib.on_cuda("warp_reproj_loss", image, grid, target):
         return warp_reproj_loss_plain(image, grid, target)
     b, h, w, c = image.shape
-    check_channels("warp_reproj_loss", c)
+    _lib.check_channels("warp_reproj_loss", c)
     loss = torch.empty((b, h, w, 1), dtype=torch.float32, device=image.device)
     with torch.cuda.device(image.device):
         _lib.launch("warp_reproj_loss", "upe_warp_reproj_loss",
@@ -90,7 +90,7 @@ def warp_reproj_loss_bwd(image, grid, target, g):
     if not _lib.on_cuda("warp_reproj_loss_bwd", image, grid, target, g):
         return warp_reproj_loss_bwd_plain(image, grid, target, g)
     b, h, w, c = image.shape
-    check_channels("warp_reproj_loss_bwd", c)
+    _lib.check_channels("warp_reproj_loss_bwd", c)
     gx, gy = (torch.empty_like(g) for _ in range(2))
     with torch.cuda.device(image.device):
         _lib.launch("warp_reproj_loss_bwd", "upe_warp_reproj_loss_bwd",

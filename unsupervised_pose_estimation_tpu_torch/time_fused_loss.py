@@ -1,8 +1,9 @@
 """Device time of the SSIM/L1 kernels, warm and with a cold L2: the fused
 warp + loss pair (K1 forward, K2 backward) and the loss of a warped plane
-(K3 forward, K4 backward); and the peak device memory and wall time of the
-training step in both warp + loss modes; at the main path's shapes on a
-CUDA card.
+(K3 forward, K4 backward); of the channel-packed corner fetches (K7 at
+``pallas_warp_version`` 6, K8 at 7); and the peak device memory and wall
+time of the training step in both warp + loss modes; at the main path's
+shapes on a CUDA card.
 
     python3 unsupervised_pose_estimation_tpu_torch/time_fused_loss.py \
         [--tree DIR]
@@ -16,7 +17,11 @@ its training step ran K1 so. K4 is timed with both gradients (``k4``) and,
 in a tree whose K4 takes ``with_target``, without the target's
 (``k4_gp_only``), the training step's mode. Inputs are ``chip_smoke.py``
 phase 2's (seed 0, small-motion grid, B=12, C=3, 192x640; K3 and K4 score
-K5's warp of the frame against the target); the training step is phase 5's
+K5's warp of the frame against the target); records ``k7`` and ``k8`` take
+phase 6's (seed 10, small-motion grid, the indices of the v6 and v7
+rungs), and ``copy_same_bytes`` times a device-to-device copy that
+moves as many bytes as K7 does (half read, half written), the rate a plain
+stream of bytes reaches; the training step is phase 5's
 (batch 12, 640x192, seed-0 weights; three fused steps, then three unfused
 ones, each mode after a reset of the peak-memory count). Per step, the
 fused mode runs K1 and K2 eight times each (and K3 twice), the unfused
@@ -125,6 +130,23 @@ def main() -> int:
             smoke.nbytes(warped, target, g_up, gp))
         del gp
     del src, target, small, g_up, loss, bwd_args, grads, warped
+
+    # K7 and K8 on phase 6's inputs (seed 10, small-motion grid)
+    src, _, small, _ = smoke.make_inputs(torch.Generator().manual_seed(10),
+                                         "cuda")
+    for name, version, rung, fetch in (
+            ("k7", 6, "v6", K.fetch_corners_packed),
+            ("k8", 7, "v7", K.fetch_corners_packed_v7)):
+        x0i, yl, ymin, band = smoke.rung_inputs(small, version, rung)
+        args = (src, x0i, yl, ymin) + ((band,) if version == 6 else ())
+        record(name, lambda: fetch(*args),
+               smoke.nbytes(src, x0i, yl, ymin, *fetch(*args)))
+    # yardstick: a device-to-device copy that moves as many bytes as K7
+    moved = records["k7"]["mb"] * 1e6
+    a = torch.empty(int(moved / 2), dtype=torch.uint8, device="cuda")
+    c = torch.empty_like(a)
+    record("copy_same_bytes", lambda: c.copy_(a), 2 * a.numel())
+    del src, small, x0i, yl, ymin, args, a, c
     pair = {t: records[train_k1][t] + records["k2"][t]
             for t in ("warm_ms", "cold_ms")}
 
