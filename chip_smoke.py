@@ -39,7 +39,17 @@ Phases, each timed on its own line:
    one training step at version 6 on the card against the CPU at a small
    size; then at batch 12, 640x192, one validation step at version 4, one
    at version 6 and three training steps at version 7, with each step's
-   kernel launches.
+   kernel launches;
+7. the training entry point, ``cli.train.main``, at batch 12, 640x192 on
+   ``synthetic_parallax``: six steps with logs, validation and checkpoints
+   at step 3 (each consumed batch checked against the host's items); a
+   second Trainer resumed from the checkpoint of step 3 (parameters, Adam
+   moments and the batches of steps 4-6 bit-equal to the uninterrupted
+   run's, losses within ``RESUME_LOSS_RTOL``, gradient norms within
+   ``RESUME_NORM_RTOL``); two steps of the lung dataset from a frame cache
+   written with numpy (no PIL); with wall ms per step, frames/s, the
+   Loader's wait, peak device memory, TF32 and the card's power limit, and
+   the K1-K3 launches of the phase.
 
 It prints one JSON line of kernel records, then, as its last line, the
 device record. Any failure ends it with a non-zero exit code; without a
@@ -1013,6 +1023,272 @@ def phase_ladder(device="cuda"):
     return records, total
 
 
+# The trainer phase: the port's training entry point at the flagship feed.
+TRAIN_ARGS = ["--compute_dtype", "float32", "--weights_init", "scratch",
+              "--num_epochs", "1", "--log_frequency", "3",
+              "--ckpt_frequency", "3", "--num_workers", "8"]
+PARALLAX_ARGS = ["--dataset", "synthetic_parallax", "--steps_per_epoch", "6"]
+# Resumed against the uninterrupted run: the restored parameters, Adam
+# moments, batches and noise are bit-equal, yet the card's forward is not
+# bit-reproducible (the first resumed step's losses differed by 1e-7 of
+# their value in a run) and cuDNN's backward convolutions sum in an order
+# that varies from run to run, which Adam's updates (about lr * sign(g)
+# where a gradient is near zero) carry into the later steps. Measured on
+# the card: losses within 3.1e-6 and gradient norms within 8.8e-4 of their
+# value. A wrong batch or restore moves the losses by several percent (they
+# change by ~20% a step here).
+RESUME_LOSS_RTOL = 1e-4
+RESUME_NORM_RTOL = 1e-2
+LUNG_LINES = 30  # lines per split file of the frame-cache route
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+    except FileNotFoundError:
+        return "nvidia-smi not found"
+    return smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}"
+
+
+def recording_steps(loop, seen):
+    """Make the trainer's step record (state.step, device copy of the
+    batch, losses, host time at entry) of every step it takes; -> the
+    function that undoes it."""
+    real = loop.build_train_step
+
+    def build(bundle):
+        step = real(bundle)
+
+        def run(state, batch):
+            entry = (state.step, {k: v.clone() for k, v in batch.items()},
+                     time.perf_counter())
+            losses = step(state, batch)
+            seen.append(entry + ({k: v.detach().clone()
+                                  for k, v in losses.items()},))
+            return losses
+        return run
+
+    loop.build_train_step = build
+    return lambda: setattr(loop, "build_train_step", real)
+
+
+def check_batches_against_host(seen, loader, epoch=0):
+    """Each batch a step consumed equals the host's collate of the items
+    the loader's shuffle names for it (a copy raced by the next batch
+    would not)."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.data.pipeline import collate
+
+    rows = loader._indices(epoch)
+    for step, batch, _, _ in seen:
+        host = collate([loader.dataset.get_item(int(i), epoch)
+                        for i in rows[step % len(rows)]])
+        for key, value in host.items():
+            if not torch.equal(batch[key].cpu(), torch.from_numpy(value)):
+                raise AssertionError(f"step {step}: batch['{key}'] differs "
+                                     f"from the host's items")
+
+
+def write_lung_cache(root, h, w):
+    """A lung-style split (30 train and 30 val lines of one sequence) and
+    a frame cache of every frame they reach, written with numpy in the
+    format data/cache.py reads; -> the split_dir, data_path and cache
+    arguments."""
+    import json as _json
+    import os
+
+    import numpy as np
+
+    from unsupervised_pose_estimation_tpu_torch.data.cache import (
+        FRAMES_FILE, INDEX_FILE, dataset_fingerprint, enumerate_frames,
+        frame_key)
+    from unsupervised_pose_estimation_tpu_torch.data.datasets import \
+        LungRAWDataset
+
+    data_path = os.path.join(root, "lung_data")  # holds no image file
+    os.makedirs(data_path)
+    rng = np.random.default_rng(12)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    for mode, first in (("train", 1), ("val", 101)):
+        lines = [f"seq1 {i} l" for i in range(first, first + LUNG_LINES)]
+        os.makedirs(os.path.join(root, "splits", "lung_smoke"),
+                    exist_ok=True)
+        with open(os.path.join(root, "splits", "lung_smoke",
+                               f"{mode}_files.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        ds = LungRAWDataset(data_path, lines, h, w, [0, -1, 1])
+        keys = enumerate_frames(ds)
+        frames = np.empty((len(keys), h, w, 3), np.uint8)
+        for row, (_, fi, _) in enumerate(keys):
+            # a smooth texture sliding 2 px a frame
+            phase = rng.uniform(0, 6.3, 3)
+            for c in range(3):
+                frames[row, ..., c] = 127.5 + 127 * np.sin(
+                    0.05 * (xs + 2 * fi) + 0.03 * ys * (c + 1) + phase[c])
+        out = os.path.join(root, "cache", mode)
+        os.makedirs(out)
+        np.save(os.path.join(out, FRAMES_FILE), frames)
+        with open(os.path.join(out, INDEX_FILE), "w") as f:
+            _json.dump({"height": h, "width": w, "rows": len(keys),
+                        "fingerprint": dataset_fingerprint(ds),
+                        "index": {frame_key(*k): r
+                                  for r, k in enumerate(keys)}}, f)
+    return ["--split", "lung_smoke", "--split_dir",
+            os.path.join(root, "splits"), "--data_path", data_path,
+            "--frame_cache", os.path.join(root, "cache")]
+
+
+@phase("trainer")
+def phase_trainer(device="cuda"):
+    """The port's cli.train.main at batch B, H x W: six steps with logs,
+    validation and checkpoints at step 3; a second Trainer resumed from
+    that checkpoint; two steps of the lung dataset from a frame cache.
+    -> kernel launches of the phase."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.cli.train import main as train
+    from unsupervised_pose_estimation_tpu_torch.config import parse_options
+    from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+    from unsupervised_pose_estimation_tpu_torch.train import loop
+
+    args = TRAIN_ARGS + ["--batch_size", str(B), "--height", str(H),
+                         "--width", str(W)]
+    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    main_run, resumed_run, file_run = [], [], []
+    try:
+        undo = recording_steps(loop, main_run)
+        K.reset_counts()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        try:
+            trainer = train(args + PARALLAX_ARGS + [
+                "--log_dir", os.path.join(root, "main")], device=device)
+        finally:
+            undo()
+        wall = time.perf_counter() - start
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if device == "cuda" else float("nan"))
+        loader = trainer.train_loader
+        check_batches_against_host(main_run, loader)
+        entries = [t for _, _, t, _ in main_run]
+        gaps = [1e3 * (b - a) for a, b in zip(entries, entries[1:])]
+        # steady steps: the first includes cuDNN's algorithm choice
+        frames_per_s = B * (len(entries) - 2) / (entries[-1] - entries[1])
+        with open(os.path.join(root, "main", "mdp", "metrics.jsonl")) as f:
+            records = [_json.loads(line) for line in f]
+        if [(r["mode"], r["step"]) for r in records] != [
+                ("train", 0), ("val", 0), ("train", 3), ("val", 3)]:
+            raise AssertionError(f"metrics.jsonl records {records}")
+        bad = [(r["mode"], k) for r in records for k, v in r.items()
+               if isinstance(v, float) and not math.isfinite(v)]
+        if bad or "de/abs_rel" not in records[1]:
+            raise AssertionError(f"bad or missing metrics: {bad}")
+        print(f"  {card_line()}; TF32 matmul "
+              f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+              f"{torch.backends.cudnn.allow_tf32}", flush=True)
+        print(f"  main run: {len(main_run)} steps at batch {B}, {H}x{W} in "
+              f"{wall:.2f} s (construction, 2 validations and 2 "
+              f"checkpoints included); wall ms between step starts "
+              f"{[round(g, 1) for g in gaps]}; {frames_per_s:.2f} frames/s "
+              f"from the start of step 1 to that of step {len(entries) - 1}; "
+              f"loader wait "
+              f"{1e3 * loader.wait_seconds:.1f} ms over {loader.batches} "
+              f"batches ({1e3 * loader.wait_seconds / loader.batches:.1f} "
+              f"ms a step); peak device memory {peak:.3f} GiB; val "
+              f"de/abs_rel {records[3]['de/abs_rel']:.4f}", flush=True)
+
+        # resume from the checkpoint of step 3 -----------------------
+        ckpt = os.path.join(root, "main", "mdp", "models", "checkpoints")
+        resume_from = os.path.join(root, "resume_from")
+        os.makedirs(resume_from)
+        shutil.copy(os.path.join(ckpt, "3.pt"), resume_from)
+        undo = recording_steps(loop, resumed_run)
+        try:
+            resumed = loop.Trainer(parse_options(args + PARALLAX_ARGS + [
+                "--log_dir", os.path.join(root, "resumed"),
+                "--load_weights_folder", resume_from]), device=device)
+            if resumed.state.step != 3:
+                raise AssertionError(f"resumed at step {resumed.state.step}")
+            saved = torch.load(os.path.join(resume_from, "3.pt"),
+                               map_location="cpu", weights_only=True)
+            for key, value in resumed.bundle.state_dict().items():
+                if not torch.equal(value.cpu(), saved["bundle"][key]):
+                    raise AssertionError(f"restored {key} differs")
+            moments = resumed.state.optimizer.state_dict()["state"]
+            for i, ref in saved["optimizer"]["state"].items():
+                for key, value in ref.items():
+                    if not torch.equal(moments[i][key].cpu(), value):
+                        raise AssertionError(f"restored Adam {key} of "
+                                             f"parameter {i} differs")
+            resumed.train()
+        finally:
+            undo()
+        tail = main_run[3:]
+        taken = ([s for s, *_ in resumed_run], [s for s, *_ in tail])
+        if not taken[0] == taken[1] == [3, 4, 5]:
+            raise AssertionError(f"steps taken (resumed, straight): {taken}")
+        rel_by_step = []
+        for (step, batch, _, losses), (_, ref, _, ref_losses) in zip(
+                resumed_run, tail):
+            for key in batch:
+                if not torch.equal(batch[key], ref[key]):
+                    raise AssertionError(f"step {step}: batch['{key}'] "
+                                         f"differs after the resume")
+            rel = {k: abs(float(v) - float(ref_losses[k])) / max(
+                abs(float(ref_losses[k])), 1e-12) for k, v in losses.items()}
+            rel_by_step.append(rel)
+        losses_rel = [max(v for k, v in r.items() if k != "grad_norm")
+                      for r in rel_by_step]
+        norms_rel = [r["grad_norm"] for r in rel_by_step]
+        print(f"  resume at step 3: parameters and Adam moments bit-equal to "
+              f"the saved ones, batches of steps 4-6 bit-equal; by step, "
+              f"losses' worst relative error {['%.3g' % v for v in losses_rel]}"
+              f" (bound {RESUME_LOSS_RTOL}), grad_norm's "
+              f"{['%.3g' % v for v in norms_rel]} (bound {RESUME_NORM_RTOL})",
+              flush=True)
+        if max(losses_rel) > RESUME_LOSS_RTOL or \
+                max(norms_rel) > RESUME_NORM_RTOL:
+            raise AssertionError(f"resumed losses off: {rel_by_step}")
+
+        # the file route: lung frames from a frame cache, no PIL -----
+        undo = recording_steps(loop, file_run)
+        try:
+            lung = train(args + write_lung_cache(root, H, W) + [
+                "--dataset", "endovis", "--steps_per_epoch", "2",
+                "--log_dir", os.path.join(root, "lung")], device=device)
+        finally:
+            undo()
+        check_batches_against_host(file_run, lung.train_loader)
+        if len(file_run) != 2 or "aug_params" not in file_run[0][1]:
+            raise AssertionError("the frame-cache route did not train")
+        print(f"  frame-cache route: {len(file_run)} steps of "
+              f"LungRAWDataset, loss "
+              f"{float(file_run[-1][3]['loss']):.6f}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = K.counts()
+    steps = len(main_run) + len(resumed_run) + len(file_run)
+    print(f"  {steps} training steps; launches {launches}", flush=True)
+    if device == "cuda":
+        missing = [k for k in ("warp_reproj_loss", "warp_reproj_loss_bwd",
+                               "reproj_loss") if launches[k] == 0]
+        if missing or launches["warp_reproj_loss_bwd"] != 8 * steps:
+            raise AssertionError(f"trainer launches {launches}")
+    return launches
+
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -1023,11 +1299,7 @@ def main() -> int:
     from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
     from unsupervised_pose_estimation_tpu_torch.ops.kernels import _lib
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=30)
-    print(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}",
-          flush=True)
+    print(card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1052,6 +1324,8 @@ def main() -> int:
     ladder_records, ladder_total = phase_ladder()
     records.update(ladder_records)
     for name, n in ladder_total.items():
+        launches[name] += n
+    for name, n in phase_trainer().items():
         launches[name] += n
     missing = [name for name, n in launches.items() if n == 0]
     if missing:

@@ -71,3 +71,15 @@ def test_ladder_modules_are_among_those_checked():
         assert f"{port.__name__}.{name}" in modules, name
     sources = {p.name for p in (ROOT / port.__name__ / "csrc").glob("*.cu")}
     assert "corners.cu" in sources
+
+
+def test_trainer_modules_are_among_those_checked():
+    """The training entry point's modules are imported, JAX-free and
+    PIL-free, above; PIL stays blocked there."""
+    modules = set(port_modules())
+    for name in ("data.datasets", "data.pipeline", "data.cache",
+                 "data.augment", "data.split", "train.loop",
+                 "train.checkpoint", "train.logging", "eval.metrics",
+                 "cli.train"):
+        assert f"{port.__name__}.{name}" in modules, name
+    assert "PIL" in BLOCKED

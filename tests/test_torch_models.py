@@ -159,3 +159,22 @@ def test_seeded_init_is_deterministic_and_leaves_global_rng():
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         ModelBundle.create(Options(height=H, width=W, **kw), device="cpu")
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7), (1, 2, 1, 2), (1, 1, 2, 1),
+                                   (1, 1, 1, 1)])
+def test_reflect_pad_of_one_row(shape):
+    """Conv3x3's pad is numpy's reflect, which repeats an axis of one
+    element (the deepest feature map of a 32-row input); torch's own
+    reflect pad refuses that axis and is used everywhere else."""
+    import torch.nn.functional as F
+
+    from unsupervised_pose_estimation_tpu_torch.models.layers import \
+        reflect_pad1
+
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(0))
+    want = np.pad(x.numpy(), [(0, 0), (0, 0), (1, 1), (1, 1)], "reflect")
+    np.testing.assert_array_equal(reflect_pad1(x).numpy(), want)
+    if min(shape[2:]) > 1:
+        assert torch.equal(reflect_pad1(x),
+                           F.pad(x, (1, 1, 1, 1), mode="reflect"))

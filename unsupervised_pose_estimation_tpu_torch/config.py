@@ -2,8 +2,10 @@
 
 Same field names and defaults as ``unsupervised_pose_estimation_tpu/
 config.py::Options``, so a config written by either package loads in the
-other (``to_json`` / ``from_json``). The TPU knobs (``use_pallas_*``,
-``pallas_*``, ``mesh_*``) are accepted and ignored, except
+other (``to_json`` / ``from_json``), and the same command line
+(``parse_options``, ``PRESETS``) gives the same options. The TPU knobs
+(``use_pallas_*``, ``pallas_*``) are accepted and ignored; ``mesh_*``
+other than one device makes the trainer raise. The exceptions are
 ``use_pallas_warp_loss``, which picks the fused warp + loss kernels (K1/K2)
 over the warp and loss kernels (K5, K3/K4) as in the reference, and
 ``pallas_warp_version``, which picks the warp's kernel ladder as in the
@@ -13,9 +15,10 @@ their plain PyTorch versions on the CPU.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass
@@ -105,9 +108,9 @@ class Options:
     lr_scheduler: str = "none"
     depth_decoder_variant: str = "fork"
     compute_dtype: str = "bfloat16"  # the port runs "float32" only so far
-    mesh_data: int = -1        # ignored
-    mesh_fsdp: int = 1         # ignored
-    mesh_dcn: int = 1          # ignored
+    mesh_data: int = -1  # the trainer runs on one device: -1 or 1
+    mesh_fsdp: int = 1   # 1 only
+    mesh_dcn: int = 1    # 1 only
     grad_accum: int = 1
     prefetch: int = 2
     device_augment: bool = True
@@ -137,8 +140,42 @@ class Options:
         return len(self.scales)
 
     @property
+    def num_input_frames(self) -> int:
+        return len(self.frame_ids)
+
+    @property
     def num_pose_frames(self) -> int:
-        return 2 if self.pose_model_input == "pairs" else len(self.frame_ids)
+        return 2 if self.pose_model_input == "pairs" else self.num_input_frames
+
+    @property
+    def use_pose_net(self) -> bool:
+        return not (self.use_stereo and tuple(self.frame_ids) == (0,))
+
+    @property
+    def source_frame_ids(self) -> Tuple:
+        ids = [f for f in self.frame_ids if f != 0]
+        if self.use_stereo:
+            ids = ids + ["s"]
+        return tuple(ids)
+
+    def validate(self):
+        """Raise ValueError for an inconsistent set of options; -> self."""
+        checks = [
+            (self.height % 32 == 0, "'height' must be a multiple of 32"),
+            (self.width % 32 == 0, "'width' must be a multiple of 32"),
+            (self.frame_ids[0] == 0, "frame_ids must start with 0"),
+            (not self.predictive_mask or self.disable_automasking,
+             "When using predictive_mask, please disable automasking with "
+             "--disable_automasking"),
+            (not self.adversarial_prior or self.pre_trained_generator,
+             "--adversarial_prior requires --pre_trained_generator"),
+            (self.grad_accum >= 1 and self.batch_size % self.grad_accum == 0,
+             "batch_size must be divisible by grad_accum"),
+        ]
+        for ok, message in checks:
+            if not ok:
+                raise ValueError(message)
+        return self
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, default=str)
@@ -152,3 +189,75 @@ class Options:
             if kwargs.get(key) is not None:
                 kwargs[key] = tuple(kwargs[key])
         return cls(**kwargs)
+
+
+# Canonical configurations: "endovis" is the fork's default flag set,
+# "kitti_upstream" the original monodepth2 defaults (640x192, depth
+# [0.1, 100], batch 12, lr 1e-4, 20 epochs, eigen_zhou).
+PRESETS = {
+    "endovis": {},
+    "kitti_upstream": dict(dataset="kitti", split="eigen_zhou", height=192,
+                           width=640, min_depth=0.1, max_depth=100.0,
+                           batch_size=12, learning_rate=1e-4, num_epochs=20,
+                           scheduler_step_size=15, lr_scheduler="step",
+                           eval_split="eigen"),
+}
+
+
+def _add_args(parser: argparse.ArgumentParser):
+    for field in dataclasses.fields(Options):
+        name = "--" + field.name
+        default = field.default
+        if isinstance(default, bool):
+            if default:  # flags that are on by default switch off
+                parser.add_argument(name, dest=field.name,
+                                    action="store_false")
+            else:
+                parser.add_argument(name, action="store_true")
+        elif isinstance(default, tuple):
+            elem = int if (not default or isinstance(default[0], int)) else str
+            parser.add_argument(name, nargs="+", type=elem,
+                                default=list(default))
+        elif default is None:
+            elem = int if "int" in str(field.type) else str
+            parser.add_argument(name, type=elem, default=None)
+        elif isinstance(default, int):
+            parser.add_argument(name, type=int, default=default)
+        elif isinstance(default, float):
+            parser.add_argument(name, type=float, default=default)
+        else:
+            parser.add_argument(name, type=str, default=default)
+
+
+def parse_options(argv: Optional[Sequence[str]] = None,
+                  description: str = "Monodepth options") -> Options:
+    """argv -> Options. ``--preset NAME`` starts from ``PRESETS[NAME]``;
+    flags given explicitly override the preset."""
+    parser = argparse.ArgumentParser(description=description)
+    parser.add_argument("--preset", choices=sorted(PRESETS), default=None,
+                        help="start from a canonical config; explicit flags "
+                             "override preset values")
+    _add_args(parser)
+    # a second pass with suppressed defaults tells which flags were given
+    explicit_parser = argparse.ArgumentParser(add_help=False)
+    explicit_parser.add_argument("--preset")
+    _add_args(explicit_parser)
+    for action in explicit_parser._actions:
+        action.default = argparse.SUPPRESS
+
+    kwargs = vars(parser.parse_args(argv))
+    explicit = vars(explicit_parser.parse_known_args(argv)[0])
+    preset = kwargs.pop("preset", None)
+    if preset:
+        for key, value in PRESETS[preset].items():
+            if key not in explicit:
+                kwargs[key] = value
+    for key in ("scales", "frame_ids", "models_to_load"):
+        kwargs[key] = tuple(kwargs[key])
+    return Options(**kwargs)
+
+
+# the reference's class names (its options module and the evaluation
+# options it imports)
+MonodepthOptions = Options
+MonodepthEvalOptions = Options

@@ -16,6 +16,19 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def reflect_pad1(x):
+    """Reflection pad of 1 on H and W with numpy's rule for an axis of one
+    element, which repeats it (torch's reflect pad refuses that axis; the
+    deepest feature map of a 32-row input has one row). Where both axes have
+    more than one element it is the one-call reflect pad, whose backward
+    keeps no padded intermediate."""
+    if x.shape[-1] > 1 and x.shape[-2] > 1:
+        return F.pad(x, (1, 1, 1, 1), mode="reflect")
+    for pad, n in (((1, 1, 0, 0), x.shape[-1]), ((0, 0, 1, 1), x.shape[-2])):
+        x = F.pad(x, pad, mode="reflect" if n > 1 else "replicate")
+    return x
+
+
 class Conv3x3(nn.Module):
     """Reflection-pad(1) + 3x3 conv."""
 
@@ -24,7 +37,7 @@ class Conv3x3(nn.Module):
         self.conv = nn.Conv2d(in_channels, out_channels, 3)
 
     def forward(self, x):
-        return self.conv(F.pad(x, (1, 1, 1, 1), mode="reflect"))
+        return self.conv(reflect_pad1(x))
 
 
 class ConvBlock(nn.Module):

@@ -23,6 +23,8 @@ import torch
 from .config import Options
 from .ops.geometry import disp_to_depth
 from .train.bundle import ModelBundle
+from .train.checkpoint import load_weights
+from .train.loop import resolve_device
 from .train.step import build_infer_step
 
 
@@ -31,15 +33,23 @@ class InferenceEngine:
 
     def __init__(self, opt: Options, max_batch: int = 8, device="cuda",
                  bundle: Optional[ModelBundle] = None):
-        """``bundle`` carries the weights (for example loaded from
-        ``convert.from_jax``); without one, weights are drawn from
+        """The weights: ``bundle``'s when given (for example loaded from
+        ``convert.from_jax``), else those of ``opt.load_weights_folder`` (a
+        checkpoint directory of this package, or a folder holding the
+        reference's ``encoder.pth`` and ``depth.pth``), else drawn from
         ``opt.seed``."""
         self.opt = opt
         self.max_batch = max_batch
         self.height, self.width = opt.height, opt.width
-        self.device = torch.device(device)
-        self.bundle = bundle if bundle is not None else ModelBundle.create(
-            opt, seed=opt.seed, device=self.device)
+        self.device = resolve_device(device)
+        if bundle is None:
+            bundle = ModelBundle.create(opt, seed=opt.seed,
+                                        device=self.device)
+            if opt.load_weights_folder is not None:
+                load_weights(bundle, opt.load_weights_folder,
+                             models_to_load=("encoder", "depth"),
+                             skip_missing=False)
+        self.bundle = bundle
         self._infer = build_infer_step(self.bundle)
         self.calls = 0
 

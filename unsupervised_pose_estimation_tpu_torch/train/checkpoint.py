@@ -1,0 +1,261 @@
+"""Checkpoints with step-granular resume, and ``.pth`` imports.
+
+Port of ``unsupervised_pose_estimation_tpu/train/checkpoint.py``. A
+checkpoint is one ``torch.save`` file, ``<directory>/<step>.pt``, holding
+the bundle's ``state_dict`` (parameters and BatchNorm statistics), the Adam
+``state_dict`` and the step; ``opt.json`` beside it holds the options. Each
+file is written to a temporary name and published with ``os.replace``, so
+a reader sees a whole checkpoint or none, and the ``keep`` newest are kept.
+An orbax directory written by the reference package is refused: reading it
+needs JAX.
+
+The importers read reference-layout ``.pth`` files (the original trainer's
+``encoder``, ``depth``, ``pose_encoder`` and ``pose`` files, and the
+torchvision ImageNet ResNets) into the port's modules, whose ``state_dict``
+already uses that layout.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import re
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from ..config import Options
+from .bundle import ModelBundle
+from .state import TrainState
+
+_CKPT = re.compile(r"(\d+)\.pt")
+
+
+def _steps(directory: str):
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(m.group(1)) for m in
+                  (_CKPT.fullmatch(n) for n in os.listdir(directory)) if m)
+
+
+def _is_orbax(directory: str) -> bool:
+    """True for a checkpoint directory of the reference package (orbax
+    keeps one numbered sub-directory per step)."""
+    return os.path.isdir(directory) and any(
+        name.isdigit() and os.path.isdir(os.path.join(directory, name))
+        for name in os.listdir(directory))
+
+
+def _refuse_orbax(directory: str):
+    if _is_orbax(directory):
+        raise ValueError(
+            f"{directory} is an orbax checkpoint of the JAX package; reading "
+            f"it needs JAX. Where JAX is installed, map its params and "
+            f"batch_stats with convert.from_jax and load them into a "
+            f"ModelBundle, or resume from a checkpoint of this package")
+
+
+def latest_step(directory: str) -> Optional[int]:
+    _refuse_orbax(directory)
+    steps = _steps(directory)
+    return steps[-1] if steps else None
+
+
+def save_checkpoint(directory: str, bundle: ModelBundle, state: TrainState,
+                    cfg: Optional[Options] = None, keep: int = 10) -> str:
+    """Write the checkpoint of ``state.step``; -> its path."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"{state.step}.pt")
+    tmp = f"{path}.tmp.{os.getpid()}"
+    torch.save({"step": state.step, "bundle": bundle.state_dict(),
+                "optimizer": state.optimizer.state_dict()}, tmp)
+    os.replace(tmp, path)
+    if cfg is not None:
+        tmp = os.path.join(directory, f"opt.json.tmp.{os.getpid()}")
+        with open(tmp, "w") as f:
+            f.write(cfg.to_json())
+        os.replace(tmp, os.path.join(directory, "opt.json"))
+    for old in _steps(directory)[:-keep]:
+        os.remove(os.path.join(directory, f"{old}.pt"))
+    return path
+
+
+def restore_checkpoint(directory: str, bundle: ModelBundle,
+                       state: Optional[TrainState] = None,
+                       step: Optional[int] = None) -> Optional[TrainState]:
+    """Load the checkpoint of ``step`` (the latest if None) into ``bundle``
+    and, when ``state`` is given, ``state.optimizer`` in place; -> ``state``
+    at the saved step (None without one)."""
+    step = latest_step(directory) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {directory}")
+    # on the CPU: load_state_dict moves each tensor to its parameter's
+    # device, and keeps Adam's step counts on the host
+    saved = torch.load(os.path.join(directory, f"{step}.pt"),
+                       map_location="cpu", weights_only=True)
+    bundle.load_state_dict(saved["bundle"])
+    if state is None:
+        return None
+    state.optimizer.load_state_dict(saved["optimizer"])
+    state.step = int(saved["step"])
+    return state
+
+
+# ---------------------------------------------------------------------------
+# reference-layout .pth imports
+# ---------------------------------------------------------------------------
+
+
+def _load_pth(path: str) -> Dict[str, Any]:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_into(module: nn.Module, state_dict: Dict[str, torch.Tensor],
+              may_miss=()):
+    """``module.load_state_dict`` that tolerates missing keys only for the
+    statistics a reference file does not store (``num_batches_tracked``)
+    and the prefixes in ``may_miss``; every key of the file must land."""
+    missing, unexpected = module.load_state_dict(state_dict, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")
+               and not k.startswith(tuple(may_miss))]
+    if missing or unexpected:
+        raise KeyError(f"state_dict does not match {type(module).__name__}: "
+                       f"missing {missing}, unexpected {unexpected}")
+
+
+def import_resnet_encoder(path: str) -> Dict[str, Any]:
+    """Reference encoder ``.pth`` -> {'state_dict': weights under
+    ``encoder.`` for a ``ResnetEncoder``, 'meta': the height, width and
+    use_stereo entries the reference trainer stores beside them}."""
+    sd = _load_pth(path)
+    meta = {k: sd.pop(k) for k in ("height", "width", "use_stereo")
+            if k in sd}
+    return {"state_dict": sd, "meta": meta}
+
+
+def import_depth_decoder(path: str) -> Dict[str, Any]:
+    """Reference DepthDecoder ``.pth`` -> {'state_dict', 'variant'}. A fork
+    decoder starts its ModuleList with bare transposed convs
+    (``decoder.0.weight``), the upstream one with a ConvBlock. The fork
+    never saved its BatchNorms, so they keep their values on load."""
+    sd = _load_pth(path)
+    variant = "fork" if "decoder.0.weight" in sd else "upstream"
+    return {"state_dict": sd, "variant": variant}
+
+
+def import_pose_decoder(path: str) -> Dict[str, Any]:
+    """Reference PoseDecoder ``.pth`` -> {'state_dict'}."""
+    return {"state_dict": _load_pth(path)}
+
+
+def import_torchvision_resnet(path_or_sd, num_input_images: int = 1
+                              ) -> Dict[str, torch.Tensor]:
+    """Un-prefixed torchvision ResNet ``.pth`` (the ImageNet zoo layout) ->
+    a ``ResnetEncoder`` state_dict. For stacked frames the RGB conv1 kernel
+    is tiled across them and divided by their count, as the reference
+    does."""
+    sd = (dict(path_or_sd) if isinstance(path_or_sd, dict)
+          else _load_pth(path_or_sd))
+    sd = {k: v for k, v in sd.items() if not k.startswith("fc.")}
+    if num_input_images > 1:
+        w = sd["conv1.weight"]
+        sd["conv1.weight"] = torch.cat([w] * num_input_images,
+                                       1) / num_input_images
+    return {f"encoder.{k}": v for k, v in sd.items()}
+
+
+# torchvision IMAGENET1K_V1 files, as the torch hub cache names them
+IMAGENET_RESNET_FILES = {
+    18: "resnet18-f37072fd.pth",
+    34: "resnet34-b627a593.pth",
+    50: "resnet50-0676ba61.pth",
+    101: "resnet101-63fe2227.pth",
+    152: "resnet152-394f9c45.pth",
+}
+
+
+def locate_imagenet_weights(num_layers: int = 18,
+                            explicit: Optional[str] = None) -> str:
+    """-> path to a torchvision ImageNet ResNet ``.pth``: the explicit
+    ``--imagenet_weights`` file, else the torch hub cache. It never
+    downloads. Raises an actionable FileNotFoundError when neither has
+    one."""
+    if explicit:
+        path = os.path.expanduser(explicit)
+        if not os.path.isfile(path):
+            raise FileNotFoundError(
+                f"--imagenet_weights {explicit} does not exist")
+        return path
+    if num_layers not in IMAGENET_RESNET_FILES:
+        raise ValueError(f"no ImageNet zoo entry for resnet{num_layers}")
+    cache_dir = os.path.join(os.path.expanduser(
+        os.environ.get("TORCH_HOME", "~/.cache/torch")), "hub",
+        "checkpoints")
+    cached = os.path.join(cache_dir, IMAGENET_RESNET_FILES[num_layers])
+    if os.path.isfile(cached):
+        return cached
+    hits = sorted(glob.glob(os.path.join(cache_dir,
+                                         f"resnet{num_layers}-*.pth")))
+    if hits:
+        return hits[0]
+    raise FileNotFoundError(
+        f"weights_init=pretrained needs the torchvision ImageNet "
+        f"resnet{num_layers} weights, and the torch hub cache ({cache_dir}) "
+        f"does not have them (this package does not download). Either "
+        f"place the file and pass --imagenet_weights <path>, or train from "
+        f"random init with --weights_init scratch.")
+
+
+def load_pth_folder(bundle: ModelBundle, folder: str,
+                    models_to_load=("pose_encoder", "pose", "depth",
+                                    "encoder"), skip_missing: bool = True):
+    """Load a folder of reference ``<name>.pth`` files into ``bundle``, as
+    the reference trainer does for ``load_weights_folder``: a missing file
+    is skipped with a message (raises FileNotFoundError unless
+    ``skip_missing``); a depth decoder of another variant than the run's
+    raises ValueError."""
+    cfg = bundle.cfg
+    for name in models_to_load:
+        path = os.path.join(folder, f"{name}.pth")
+        if not os.path.isfile(path):
+            if not skip_missing:
+                raise FileNotFoundError(f"Cannot find {path}")
+            print(f"Cannot find {path}; skipping")
+            continue
+        print(f"Loading {name} weights...")
+        module = getattr(bundle, name)
+        if name in ("encoder", "pose_encoder"):
+            load_into(module, import_resnet_encoder(path)["state_dict"])
+        elif name == "depth":
+            tree = import_depth_decoder(path)
+            if tree["variant"] != cfg.depth_decoder_variant:
+                raise ValueError(
+                    f"{path} is a '{tree['variant']}' decoder but the "
+                    f"run is configured for "
+                    f"'{cfg.depth_decoder_variant}'; pass "
+                    f"--depth_decoder_variant {tree['variant']}")
+            load_into(module, tree["state_dict"], may_miss=("bn.",))
+        elif name == "pose":
+            load_into(module, import_pose_decoder(path)["state_dict"])
+        else:
+            raise ValueError(f"unknown model '{name}' in models_to_load")
+
+
+def load_weights(bundle: ModelBundle, folder: str,
+                 state: Optional[TrainState] = None,
+                 models_to_load=("pose_encoder", "pose", "depth", "encoder"),
+                 skip_missing: bool = True) -> str:
+    """Load ``folder`` into ``bundle``: a checkpoint directory of this
+    package (its latest step; the optimizer and step too when ``state`` is
+    given) or a folder of reference ``.pth`` files (``load_pth_folder``).
+    -> "checkpoint" or "pth"."""
+    folder = os.path.expanduser(folder)
+    if not os.path.isdir(folder):
+        raise FileNotFoundError(f"Cannot find folder {folder}")
+    step = latest_step(folder)
+    if step is None:
+        load_pth_folder(bundle, folder, models_to_load, skip_missing)
+        return "pth"
+    restore_checkpoint(folder, bundle, state, step)
+    return "checkpoint"

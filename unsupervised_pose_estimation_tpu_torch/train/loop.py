@@ -1,0 +1,292 @@
+"""Trainer: data, training steps, validation, logging and checkpoints.
+
+Port of ``unsupervised_pose_estimation_tpu/train/loop.py`` with the same
+structure, on one device. Every random stream is a function of the seed
+and the global step: the training step's automask noise comes from
+``noise_generator(seed, step)``, validation's from ``(seed + 2, step)``,
+and the Loader's shuffle and item draws from the seed, the epoch and the
+index. So a run resumed from a checkpoint at step N replays the batches and
+the noise of an uninterrupted run from step N on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import Options
+from ..data.datasets import (SyntheticDataset, SyntheticParallaxDataset,
+                             make_dataset)
+from ..data.pipeline import Loader
+from ..data.split import readlines, resolve_split_file
+from ..ops.geometry import disp_to_depth
+from . import checkpoint as ck
+from .bundle import ModelBundle
+from .logging import MetricLogger, Profiler
+from .state import create_train_state
+from .step import build_eval_step, build_train_step, noise_generator
+
+_REPO_SPLITS = os.path.join(os.path.dirname(__file__), "..", "..", "splits")
+
+
+def _split_path(split: str, mode: str, split_dir: Optional[str] = None
+                ) -> str:
+    return resolve_split_file(split_dir or _REPO_SPLITS, split, mode)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises if it is a CUDA device and none
+    is found (no fallback to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found; pass device='cpu' to run "
+                           "on the CPU")
+    return device
+
+
+class Trainer:
+    def __init__(self, options: Options, lr: Optional[float] = None,
+                 sampling: Optional[int] = None, device="cuda"):
+        # the reference entry point overrides lr and sampling positionally
+        cfg = options
+        if lr is not None:
+            cfg = dataclasses.replace(cfg, learning_rate=lr)
+        if sampling is not None:
+            cfg = dataclasses.replace(cfg, sampling_frequency=sampling)
+        cfg.validate()
+        if cfg.mesh_data not in (-1, 1) or cfg.mesh_fsdp != 1 \
+                or cfg.mesh_dcn != 1:
+            raise NotImplementedError(
+                "the trainer runs on one device: mesh_data must be -1 or 1, "
+                "mesh_fsdp and mesh_dcn 1")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+        if cfg.debug_nans:
+            torch.autograd.set_detect_anomaly(True)
+
+        print(f"learning rate {cfg.learning_rate} "
+              f"sampling frequency : {cfg.sampling_frequency}")
+
+        self.log_path = os.path.join(cfg.log_dir, cfg.model_name)
+        os.makedirs(self.log_path, exist_ok=True)
+
+        self.bundle = ModelBundle.create(cfg, seed=cfg.seed,
+                                         device=self.device)
+
+        # data ---------------------------------------------------------
+        frame_ids = list(cfg.frame_ids) + (["s"] if cfg.use_stereo else [])
+        if cfg.synthetic_data or cfg.dataset in ("synthetic",
+                                                 "synthetic_parallax"):
+            ds_cls = (SyntheticParallaxDataset
+                      if cfg.dataset == "synthetic_parallax"
+                      else SyntheticDataset)
+            n_items = max(4 * cfg.batch_size,
+                          (cfg.steps_per_epoch or 4) * cfg.batch_size)
+            extra = ({"cache_items": True,
+                      "with_rotation": cfg.synthetic_rotation}
+                     if ds_cls is SyntheticParallaxDataset else {})
+            train_ds = ds_cls(n_items, cfg.height, cfg.width, frame_ids,
+                              sampling_frequency=cfg.sampling_frequency,
+                              **extra)
+            # parallax validation items carry exact depth, so the depth
+            # metrics are logged with no files at all
+            val_ds = ds_cls(2 * cfg.batch_size, cfg.height, cfg.width,
+                            frame_ids, is_train=False, seed=1,
+                            load_depth=True, **extra)
+        else:
+            # boundary frames go, per sampling stride
+            sf = cfg.sampling_frequency
+            train_files = readlines(
+                _split_path(cfg.split, "train", cfg.split_dir))[sf:-sf]
+            val_files = readlines(
+                _split_path(cfg.split, "val", cfg.split_dir))[sf:-sf]
+            common = dict(height=cfg.height, width=cfg.width,
+                          frame_idxs=frame_ids, img_ext=".png",
+                          sampling_frequency=sf, seed=cfg.seed,
+                          device_augment=cfg.device_augment)
+            train_ds = make_dataset(cfg.dataset, data_path=cfg.data_path,
+                                    filenames=train_files, is_train=True,
+                                    **common)
+            val_ds = make_dataset(cfg.dataset, data_path=cfg.data_path,
+                                  filenames=val_files, is_train=False,
+                                  load_depth=True, **common)
+            if cfg.frame_cache:
+                # pre-decoded uint8 frames, train and val side by side
+                from ..data.cache import attach_frame_cache
+
+                attach_frame_cache(train_ds,
+                                   os.path.join(cfg.frame_cache, "train"),
+                                   build_if_missing=True)
+                attach_frame_cache(val_ds,
+                                   os.path.join(cfg.frame_cache, "val"),
+                                   build_if_missing=True)
+
+        self.train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
+                                   device=self.device,
+                                   num_workers=cfg.num_workers,
+                                   num_worker_procs=cfg.num_worker_procs,
+                                   prefetch=cfg.prefetch, seed=cfg.seed)
+        self.val_loader = Loader(val_ds, cfg.batch_size, shuffle=True,
+                                 device=self.device,
+                                 num_workers=max(2, cfg.num_workers // 2),
+                                 prefetch=1, seed=cfg.seed, infinite=True)
+        self.val_iter = iter(self.val_loader)
+
+        steps_per_epoch = cfg.steps_per_epoch or len(self.train_loader)
+        self.steps_per_epoch = min(steps_per_epoch, len(self.train_loader))
+        self.num_total_steps = self.steps_per_epoch * cfg.num_epochs
+
+        self.state = create_train_state(self.bundle, self.steps_per_epoch)
+        self._init_encoders()
+        self._load_initial_weights()
+
+        self.train_step = build_train_step(self.bundle)
+        self.eval_step = build_eval_step(self.bundle,
+                                         with_images=cfg.log_images)
+
+        self.logger = MetricLogger(
+            cfg.log_dir, cfg.model_name, use_wandb=cfg.wandb,
+            jsonl=cfg.log_jsonl, config=cfg.__dict__,
+            total_steps=self.num_total_steps)
+        self.profiler = Profiler(cfg.profile_dir)
+
+        print("Training model named:\n  ", cfg.model_name)
+        print("Models and logs are saved to:\n  ", cfg.log_dir)
+        name = (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else "cpu")
+        print("Training is using:\n  ", f"{self.device} ({name})")
+        print(f"There are {len(train_ds)} training items and "
+              f"{len(val_ds)} validation items\n")
+
+        self._save_opts()
+        self.ckpt_dir = os.path.join(self.log_path, "models", "checkpoints")
+        self._saved_step = None
+        self.epoch = 0
+        self.step = 0
+
+    # ------------------------------------------------------------------
+    def _init_encoders(self):
+        """weights_init "pretrained": the torchvision ImageNet ResNet into
+        both encoders (conv1 averaged over the pose encoder's stacked
+        frames); "scratch" keeps the seeded random init."""
+        cfg = self.cfg
+        if cfg.weights_init != "pretrained":
+            print(f"weights_init={cfg.weights_init}: random encoder init")
+            return
+        path = ck.locate_imagenet_weights(cfg.num_layers,
+                                          cfg.imagenet_weights)
+        ck.load_into(self.bundle.encoder, ck.import_torchvision_resnet(path))
+        ck.load_into(self.bundle.pose_encoder, ck.import_torchvision_resnet(
+            path, cfg.num_pose_frames))
+        print(f"weights_init=pretrained: ImageNet resnet{cfg.num_layers} "
+              f"from {path} -> encoder, pose_encoder")
+
+    def _load_initial_weights(self):
+        folder = self.cfg.load_weights_folder
+        if folder is None:
+            return
+        kind = ck.load_weights(self.bundle, folder, self.state,
+                               self.cfg.models_to_load)
+        if kind == "checkpoint":
+            print(f"restored checkpoint from {folder} "
+                  f"(step {self.state.step})")
+
+    def _save_opts(self):
+        models_dir = os.path.join(self.log_path, "models")
+        os.makedirs(models_dir, exist_ok=True)
+        with open(os.path.join(models_dir, "opt.json"), "w") as f:
+            f.write(self.cfg.to_json())
+
+    # ------------------------------------------------------------------
+    def train(self):
+        cfg = self.cfg
+        start_step = self.state.step
+        self.step = start_step
+        spe = max(self.steps_per_epoch, 1)
+        start_epoch = start_step // spe
+        try:
+            for self.epoch in range(start_epoch, cfg.num_epochs):
+                # mid-epoch resume: the checkpointed step places the run,
+                # and the Loader replays the rest of the epoch
+                start_batch = start_step - self.epoch * spe \
+                    if self.epoch == start_epoch else 0
+                self.run_epoch(start_batch)
+                if (self.epoch + 1) % cfg.save_frequency == 0:
+                    self.save()
+        finally:
+            self.close()
+        return self.state
+
+    def save(self):
+        """Checkpoint the current step (once: an epoch's end may fall on a
+        step that ckpt_frequency already saved)."""
+        if self._saved_step != self.state.step:
+            ck.save_checkpoint(self.ckpt_dir, self.bundle, self.state,
+                               self.cfg)
+            self._saved_step = self.state.step
+
+    def close(self):
+        """End the loaders' workers and close the logs."""
+        self.val_iter.close()
+        self.train_loader.close()
+        self.val_loader.close()
+        self.logger.finish()
+
+    def run_epoch(self, start_batch: int = 0):
+        cfg = self.cfg
+        print("Training")
+        for batch_idx, batch in enumerate(
+                self.train_loader.epoch(self.epoch, start_batch=start_batch),
+                start=start_batch):
+            if batch_idx >= self.steps_per_epoch:
+                break
+            t0 = time.time()
+            self.profiler.maybe_start(self.step)
+            losses = self.train_step(self.state, batch)
+
+            if batch_idx % cfg.log_frequency == 0:
+                loss = float(losses["loss"])  # syncs only when logging
+                duration = time.time() - t0
+                self.logger.log_time(self.epoch, batch_idx, self.step + 1,
+                                     duration, cfg.batch_size, loss)
+                self.logger.log_scalars(
+                    "train", {k: float(v) for k, v in losses.items()},
+                    self.step,
+                    learning_rate=float(self.state.schedule(self.step)))
+                self.val()
+            self.profiler.maybe_stop(self.step)
+            self.step += 1
+            if cfg.ckpt_frequency and self.step % cfg.ckpt_frequency == 0:
+                self.save()
+
+    def val(self):
+        """One validation batch, with the depth metrics when the dataset
+        ships ground truth."""
+        batch = dict(next(self.val_iter))
+        depth_gt = batch.pop("depth_gt", None)
+        # a generator of the step: validation never draws from the
+        # training stream, so a resumed run matches an uninterrupted one
+        gen = noise_generator(self.cfg.seed + 2, self.step, self.device)
+        losses, outputs = self.eval_step(batch, generator=gen)
+        scalars = {k: float(v) for k, v in losses.items()}
+        if depth_gt is not None:
+            from ..eval.metrics import train_time_depth_metrics
+
+            _, depth = disp_to_depth(outputs["disp"][0][..., 0],
+                                     self.cfg.min_depth, self.cfg.max_depth)
+            scalars.update(train_time_depth_metrics(
+                depth.cpu().numpy(), depth_gt.cpu().numpy()))
+        self.logger.log_scalars("val", scalars, self.step)
+        if self.cfg.log_images:
+            images = {f"disp/{s}": outputs["disp"][s][0, ..., 0].cpu().numpy()
+                      for s in self.cfg.scales}
+            for key, val in outputs.items():
+                if key.startswith(("automask/", "color_pred/")):
+                    images[key] = np.asarray(val[0].cpu())
+            self.logger.log_images("val", images, self.step)
