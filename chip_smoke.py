@@ -19,14 +19,21 @@ Phases, each timed on its own line:
 3. the validation step at batch 12, 640x192, random weights from a seed,
    with and without the warped images, with the kernel launches it makes,
    after a check of the card's validation and inference steps against the
-   CPU's on the same weights and inputs at a small size;
+   CPU's on the same weights and inputs at a small size; in float32, then
+   with the networks in bfloat16 (``BF16_*``: held to the CPU's own
+   bfloat16-against-float32 gap), with wall ms and peak memory;
 4. depth serving: 16 requests from 4 threads through MicroBatcher into an
-   InferenceEngine with max_batch=8;
+   InferenceEngine with max_batch=8, in float32 and in bfloat16 (after a
+   check of a bfloat16 engine against the CPU's), with wall ms and peak
+   memory;
 5. the training step (forward, loss, backward, Adam) at batch 12, 640x192,
    three steps with the fused warp + loss kernels (K1/K2) and three with
    the warp and loss kernels (K5, K3/K4), with the kernel launches of each
    step, after a check of two training steps on the card against the CPU's
-   on the same weights, noise and augmentation at a small size;
+   on the same weights, noise and augmentation at a small size; in float32,
+   then in bfloat16 (one step against the CPU's, held to its gap); each
+   dtype's step also twice under the trainer's deterministic cuDNN (the
+   same bits) and timed with and without it, in alternating rounds;
 6. the warp ladder of ``pallas_warp_version`` 1-7: the corner-fetch
    kernels K6 (narrow and wide band, per-block and per-row band starts),
    K7 and K8 against their plain versions on grids that meet their gates
@@ -40,16 +47,22 @@ Phases, each timed on its own line:
    size; then at batch 12, 640x192, one validation step at version 4, one
    at version 6 and three training steps at version 7, with each step's
    kernel launches;
-7. the training entry point, ``cli.train.main``, at batch 12, 640x192 on
-   ``synthetic_parallax``: six steps with logs, validation and checkpoints
-   at step 3 (each consumed batch checked against the host's items); a
-   second Trainer resumed from the checkpoint of step 3 (parameters, Adam
-   moments and the batches of steps 4-6 bit-equal to the uninterrupted
-   run's, losses within ``RESUME_LOSS_RTOL``, gradient norms within
-   ``RESUME_NORM_RTOL``); two steps of the lung dataset from a frame cache
-   written with numpy (no PIL); with wall ms per step, frames/s, the
-   Loader's wait, peak device memory, TF32 and the card's power limit, and
-   the K1-K3 launches of the phase.
+7. the training entry point, ``cli.train.main``, at its defaults
+   (bfloat16) at batch 12, 640x192 on ``synthetic_parallax``: six steps
+   with logs, validation and checkpoints at steps 3 and 6 (each consumed
+   batch checked against the host's items); a second Trainer resumed from
+   the checkpoint of step 3 (parameters, Adam moments and the batches of
+   steps 4-6 bit-equal to the uninterrupted run's, losses within
+   ``RESUME_LOSS_RTOL``, gradient norms within ``RESUME_NORM_RTOL``); two
+   steps of the lung dataset from a frame cache written with numpy (no
+   PIL); with wall ms per step, frames/s, the Loader's wait, peak device
+   memory, TF32 and the card's power limit, and the K1-K3 launches of the
+   phase;
+8. evaluation: ``cli.evaluate_depth`` (mono, post-processed) and
+   ``cli.evaluate_pose`` on phase 7's last checkpoint, over a split of
+   ``synthetic_parallax`` items with their exact depth and poses, at the
+   trainer's feed (timed) and, against the same entry points and functions
+   on the CPU, at a small size.
 
 It prints one JSON line of kernel records, then, as its last line, the
 device record. Any failure ends it with a non-zero exit code; without a
@@ -58,11 +71,16 @@ CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import json
 import math
+import os
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -383,11 +401,58 @@ def smoke_batch(gen, device, b=None, h=None, w=None):
             "K_norm": K_norm.expand(b, 4, 4).contiguous().to(device)}
 
 
-def smoke_options(b=None, h=None, w=None):
+def smoke_options(b=None, h=None, w=None, dtype="float32"):
     from unsupervised_pose_estimation_tpu_torch.config import Options
 
     return Options(height=h or H, width=w or W, batch_size=b or B,
-                   compute_dtype="float32")
+                   compute_dtype=dtype)
+
+
+# bfloat16 on the card against bfloat16 on the CPU: both round every layer
+# once to bfloat16, cuDNN and the CPU's convolutions in their own orders, so
+# they are held to the CPU's own bfloat16-against-float32 gap on the same
+# weights and inputs: the largest difference within BF16_MAX times the
+# gap's largest, the mean within BF16_MEAN times the gap's mean (the CPU
+# tests hold the port's bfloat16 to the JAX package's in the same way,
+# tests/test_torch_bf16_models.py); each loss within BF16_LOSS times the
+# largest gap of the losses plus this script's float32 bound (1e-4 of its
+# value); the whole gradient in L2 within BF16_MEAN times the gap's.
+BF16_MAX, BF16_MEAN, BF16_LOSS = 3.0, 2.0, 4.0
+
+
+def within_bf16_gap(card, cpu, cpu_f32, what):
+    """Hold ``card`` (any device) to ``cpu`` by the gap between ``cpu`` and
+    ``cpu_f32``: BF16_MAX on the largest difference, BF16_MEAN on the
+    mean; -> the two ratios."""
+    card = card.detach().cpu().double()
+    cpu, cpu_f32 = cpu.detach().double(), cpu_f32.detach().double()
+    gap, err = (cpu - cpu_f32).abs(), (card - cpu).abs()
+    if not float(gap.max()) > 0:
+        raise AssertionError(f"{what}: no bfloat16 gap on the CPU")
+    ratios = (float(err.max() / gap.max()), float(err.mean() / gap.mean()))
+    print(f"  bf16 {what}, card vs CPU: max {float(err.max()):.3e} = "
+          f"{ratios[0]:.2f}x the CPU's bf16-float32 gap (tol {BF16_MAX}), "
+          f"mean {ratios[1]:.2f}x (tol {BF16_MEAN})", flush=True)
+    if not (ratios[0] <= BF16_MAX and ratios[1] <= BF16_MEAN):
+        raise AssertionError(f"bf16 {what} on the card disagrees with the "
+                             f"CPU")
+    return ratios
+
+
+def bf16_losses_close(card, cpu, cpu_f32, what):
+    """Each loss of ``card`` within BF16_LOSS times the largest CPU gap of
+    the losses plus 1e-4 of its value; -> the worst share of the bound."""
+    keys = [k for k in cpu if k != "grad_norm"]
+    gap = max(abs(float(cpu[k]) - float(cpu_f32[k])) for k in keys)
+    worst = max(abs(float(card[k]) - float(cpu[k]))
+                / (BF16_LOSS * gap + 1e-4 * abs(float(cpu[k]))) for k in keys)
+    print(f"  bf16 {what} losses, card vs CPU: worst {worst:.3f} of the "
+          f"bound ({BF16_LOSS}x the CPU's largest bf16-float32 gap "
+          f"{gap:.3e}, plus 1e-4 relative)", flush=True)
+    if not worst <= 1.0:
+        raise AssertionError(f"bf16 {what} losses on the card disagree "
+                             f"with the CPU")
+    return worst
 
 
 def check_against_cpu(device):
@@ -435,8 +500,54 @@ def check_against_cpu(device):
           f"(tol 1e-4)", flush=True)
 
 
-@phase("eval_step")
-def phase_eval_step(device="cuda"):
+def small_bundles(device, b, h, w):
+    """The bundle of seed 3 at B=b, h x w on the CPU in float32 and in
+    bfloat16 (the same weights) and a copy of the bfloat16 one on
+    ``device``."""
+    import copy
+
+    from unsupervised_pose_estimation_tpu_torch.train.bundle import \
+        ModelBundle
+
+    cpu32, cpu16 = (ModelBundle.create(smoke_options(b, h, w, dt), seed=3,
+                                       device="cpu")
+                    for dt in ("float32", "bfloat16"))
+    return cpu32, cpu16, copy.deepcopy(cpu16).to(device)
+
+
+def check_bf16_against_cpu(device):
+    """check_against_cpu at bfloat16: the validation step in both modes and
+    the inference step on the card against the CPU's, on the same weights,
+    inputs and automask noise at B=2, 64x128, held to the CPU's own
+    bfloat16-against-float32 gap (BF16_*)."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.train.step import (
+        build_eval_step, build_infer_step)
+
+    b, h, w = 2, 64, 128
+    cpu32, cpu16, card = small_bundles(device, b, h, w)
+    gen = torch.Generator().manual_seed(4)
+    batch = smoke_batch(gen, "cpu", b, h, w)
+    noise = {s: torch.randn((b, h, w, 2), generator=gen) * 1e-5
+             for s in range(4)}
+    for with_images in (False, True):
+        want, ref = (build_eval_step(x, with_images)(batch, noise=noise)[0]
+                     for x in (cpu16, cpu32))
+        got = build_eval_step(card, with_images)(
+            {k: v.to(device) for k, v in batch.items()},
+            noise={s: n.to(device) for s, n in noise.items()})[0]
+        bf16_losses_close(got, want, ref,
+                          f"validation (with_images={with_images})")
+    images = batch["color"][:, 0].float() / 255.0
+    want, ref = (build_infer_step(x)(images)[0] for x in (cpu16, cpu32))
+    got = build_infer_step(card)(images.to(device))[0]
+    if got.dtype != torch.float32:
+        raise AssertionError(f"bf16 disparity came back {got.dtype}")
+    within_bf16_gap(got, want, ref, f"disparity at B={b}, {w}x{h}")
+
+
+def phase_eval_step(device="cuda", dtype="float32"):
     """The validation step in both modes; asserts finite losses and the
     kernel launches of each mode; -> launches of the whole phase."""
     import torch
@@ -447,9 +558,14 @@ def phase_eval_step(device="cuda"):
     from unsupervised_pose_estimation_tpu_torch.train.step import \
         build_eval_step
 
-    check_against_cpu(device)
-    opt = smoke_options()
+    if dtype == "float32":
+        check_against_cpu(device)
+    else:
+        check_bf16_against_cpu(device)
+    opt = smoke_options(dtype=dtype)
     bundle = ModelBundle.create(opt, seed=0, device=device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator().manual_seed(1)
     batch = smoke_batch(gen, device)
     none = {name: 0 for name in KERNELS}
@@ -492,6 +608,10 @@ def phase_eval_step(device="cuda"):
             times.append(time.perf_counter() - start)
         print(f"  with_images={with_images}: steady wall ms "
               f"{sorted(1e3 * t for t in times)}", flush=True)
+    if device == "cuda":
+        print(f"  {dtype}: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"{card_line()}", flush=True)
     return total
 
 
@@ -650,11 +770,214 @@ def check_networks_float64(bundle, device, aug):
                              "disagree with the CPU")
 
 
-@phase("train_step")
-def phase_train_step(device="cuda"):
+def bf16_gradient_checks(card, cpu, cpu_f32):
+    """The bfloat16 gradient ``card`` against ``cpu`` ({name: tensor}), by
+    the CPU's own bfloat16-against-float32 gap (``cpu`` against
+    ``cpu_f32``), as tests/test_torch_bf16_step.py holds the port's to the
+    JAX package's: the whole gradient in L2 within BF16_MEAN times the gap,
+    and per network the scale (the median over its parameters of the
+    least-squares factor <card, cpu> / <cpu, cpu>) no further from 1 than
+    BF16_MEAN times the CPU float32's largest distance over the networks
+    (a network's gradient halved or doubled fails it); -> failures."""
+    def dot(a, b):
+        return float((a.double() * b.double()).sum())
+
+    names = list(cpu)
+    gap = math.sqrt(sum(dot(cpu[n] - cpu_f32[n], cpu[n] - cpu_f32[n])
+                        for n in names))
+    err = math.sqrt(sum(dot(card[n] - cpu[n], card[n] - cpu[n])
+                        for n in names))
+    norm = math.sqrt(sum(dot(cpu_f32[n], cpu_f32[n]) for n in names))
+
+    def scale(g, net):
+        return statistics.median(dot(g[n], cpu[n]) / dot(cpu[n], cpu[n])
+                                 for n in names if n.startswith(net))
+
+    nets = ("encoder.", "depth.", "pose_encoder.", "pose.")
+    ref_dev = max(abs(scale(cpu_f32, net) - 1.0) for net in nets)
+    devs = {net: abs(scale(card, net) - 1.0) for net in nets}
+    print(f"  bf16 gradient, card vs CPU: L2 {err:.3e} = {err / gap:.2f}x "
+          f"the CPU's bf16-float32 gap {gap:.3e} ({gap / norm:.2f} of "
+          f"the float32 gradient's norm; tol {BF16_MEAN}x); per-network "
+          f"scale's distance from 1 "
+          f"{[round(d, 4) for d in devs.values()]} against the CPU "
+          f"float32's largest {ref_dev:.4f} (tol {BF16_MEAN}x)", flush=True)
+    failed = [] if err <= BF16_MEAN * gap else ["L2"]
+    return failed + [net for net, d in devs.items()
+                     if not d <= BF16_MEAN * ref_dev]
+
+
+def check_bf16_train_against_cpu(device):
+    """One bfloat16 training step on the card against the CPU's, from the
+    same weights (seed 3), batch, augmentation and automask noise at B=2,
+    64x128, each with its own Adam: the losses and the gradient held to the
+    CPU's own bfloat16-against-float32 gap (BF16_*, bf16_gradient_checks);
+    the share of parameters whose Adam update has the other sign than the
+    CPU's within BF16_MEAN times the share between the CPU's bfloat16 and
+    float32 updates; the BatchNorm statistics within BF16_MAX times the
+    CPU's gap; parameters, gradients and Adam's moments float32."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.train.state import \
+        create_train_state
+    from unsupervised_pose_estimation_tpu_torch.train.step import \
+        build_train_step
+
+    b, h, w = 2, 64, 128
+    nets = small_bundles(device, b, h, w)
+    gen = torch.Generator().manual_seed(5)
+    batch = train_batch(gen, "cpu", b, h, w)
+    noise = {s: torch.randn((b, h, w, 2), generator=gen) * 1e-5
+             for s in range(4)}
+    init = {n: p.detach().clone() for n, p in nets[0].named_parameters()}
+    out = []
+    for net in nets:
+        dev = next(net.parameters()).device
+        state = create_train_state(net)
+        losses = build_train_step(net)(
+            state, {k: v.to(dev) for k, v in batch.items()},
+            noise={s: v.to(dev) for s, v in noise.items()})
+        moments = [t for st in state.optimizer.state.values()
+                   for t in st.values() if torch.is_tensor(t)]
+        if any(t.dtype != torch.float32 for t in [
+                *net.parameters(), *moments,
+                *(p.grad for p in net.parameters())] if t.is_floating_point()):
+            raise AssertionError("a parameter, gradient or Adam moment of "
+                                 "the bf16 step is not float32")
+        out.append((losses, {n: p.grad.detach().cpu()
+                             for n, p in net.named_parameters()},
+                    {n: t.detach().cpu()
+                     for n, t in net.state_dict().items()}))
+    (ref, g32, sd32), (want, g16, sd16), (got, gcard, sdcard) = out
+    bf16_losses_close(got, want, ref, "training step")
+    failed = bf16_gradient_checks(gcard, g16, g32)
+
+    def flipped(sd_a, sd_b):
+        """The share of parameters whose updates differ in sign."""
+        return sum(int((torch.sign(sd_a[n] - init[n])
+                        != torch.sign(sd_b[n] - init[n])).sum())
+                   for n in init) / sum(t.numel() for t in init.values())
+
+    signs = flipped(sdcard, sd16), flipped(sd16, sd32)
+    stats = [n for n in sd16 if "running" in n]
+    stat_gap = max(float((sd16[n] - sd32[n]).abs().max()) for n in stats)
+    stat_err = max(float((sdcard[n] - sd16[n]).abs().max()) for n in stats)
+    print(f"  bf16 Adam updates, card vs CPU: {signs[0]:.4%} of the "
+          f"parameters moved the other way, against {signs[1]:.4%} between "
+          f"the CPU's bf16 and float32 (tol {BF16_MEAN}x); statistics "
+          f"{stat_err:.3e} = {stat_err / stat_gap:.2f}x the CPU's gap (tol "
+          f"{BF16_MAX})", flush=True)
+    if failed or not (signs[0] <= BF16_MEAN * signs[1]
+                      and stat_err <= BF16_MAX * stat_gap):
+        raise AssertionError(f"the bf16 training step on the card disagrees "
+                             f"with the CPU: {failed}")
+
+
+def check_step_repeats(bundle, batch):
+    """The training step's forward and backward twice from the same
+    parameters, batch and noise under the trainer's setting
+    (``train.loop.deterministic_cudnn``): the losses and every gradient
+    must be the same bits (torch's own reflect-pad backward, which the
+    networks no longer use, differed on every repeat on the H100)."""
+    import torch
+
+    import torch.nn.functional as F
+
+    from unsupervised_pose_estimation_tpu_torch.models.layers import \
+        reflect_pad1
+    from unsupervised_pose_estimation_tpu_torch.train.loop import \
+        deterministic_cudnn
+    from unsupervised_pose_estimation_tpu_torch.train.step import \
+        forward_and_loss
+
+    gen = torch.Generator(batch["color"].device).manual_seed(9)
+    noise = {s: torch.randn((B, H, W, 2), generator=gen,
+                            device=batch["color"].device) * 1e-5
+             for s in range(4)}
+    runs = []
+    with deterministic_cudnn():
+        for _ in range(2):
+            bundle.zero_grad(set_to_none=True)
+            total, (losses, _) = forward_and_loss(bundle, batch, train=True,
+                                                  noise=noise)
+            total.backward()
+            runs.append((losses, {n: p.grad.clone()
+                                  for n, p in bundle.named_parameters()}))
+    (l0, g0), (l1, g1) = runs
+    differ = [k for k in l0 if not torch.equal(l0[k], l1[k])] + [
+        n for n in g0 if not torch.equal(g0[n], g1[n])]
+    # why the networks pad with their own backward: torch's, repeated
+    x = torch.randn((B, 16, H, W), generator=gen, device=gen.device,
+                    dtype=getattr(torch, bundle.cfg.compute_dtype))
+    x.requires_grad_()
+    padded = F.pad(x, (1, 1, 1, 1), mode="reflect")
+    g = torch.randn(padded.shape, generator=gen, device=gen.device,
+                    dtype=x.dtype)
+    grads = [torch.autograd.grad(padded, x, g, retain_graph=True)[0]
+             for _ in range(6)]
+    torch_differs = sum(not torch.equal(grads[0], t) for t in grads[1:])
+    mine = [torch.autograd.grad(reflect_pad1(x), x, g)[0] for _ in range(6)]
+    mine_differs = sum(not torch.equal(mine[0], t) for t in mine[1:])
+    print(f"  the step twice under deterministic cuDNN: losses and "
+          f"{len(g0)} gradients bit-equal: {not differ}; reflect-pad "
+          f"backward at {tuple(x.shape)}, 5 repeats against the first: "
+          f"torch's differed {torch_differs}, reflect_pad1's {mine_differs}",
+          flush=True)
+    if mine_differs:
+        raise AssertionError("reflect_pad1's backward is not repeatable")
+    if differ:
+        raise AssertionError(f"a repeated step differs in {differ[:5]}")
+    bundle.zero_grad(set_to_none=True)
+
+
+DET_ROUNDS, DET_STEPS = 16, 3
+
+
+def time_deterministic_cudnn(step, state, batch, dtype):
+    """Wall ms of the bare step with and without the trainer's
+    deterministic cuDNN, in DET_ROUNDS rounds of DET_STEPS steps each way,
+    the order alternating (on-off, off-on); -> {"on": [...], "off":
+    [...]}."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.train.loop import \
+        deterministic_cudnn
+
+    times = {"on": [], "off": []}
+
+    def run(mode):
+        with deterministic_cudnn() if mode == "on" else \
+                contextlib.nullcontext():
+            step(state, batch)  # the algorithm choice of this setting
+            torch.cuda.synchronize()
+            for _ in range(DET_STEPS):
+                start = time.perf_counter()
+                step(state, batch)
+                torch.cuda.synchronize()
+                times[mode].append(1e3 * (time.perf_counter() - start))
+
+    for r in range(DET_ROUNDS):
+        for mode in (("on", "off") if r % 2 == 0 else ("off", "on")):
+            run(mode)
+    rounds = [statistics.median(times["on"][i:i + DET_STEPS])
+              - statistics.median(times["off"][i:i + DET_STEPS])
+              for i in range(0, len(times["on"]), DET_STEPS)]
+    on, off = (statistics.median(times[m]) for m in ("on", "off"))
+    print(f"  {dtype} step, deterministic cuDNN on vs off ({DET_ROUNDS} "
+          f"alternating rounds of {DET_STEPS}): median {on:.2f} vs "
+          f"{off:.2f} ms ({100 * (on / off - 1):+.1f}%); per-round "
+          f"difference of medians {[round(d, 2) for d in rounds]} ms "
+          f"(median {statistics.median(rounds):+.2f}); {card_line()}",
+          flush=True)
+    return times
+
+
+def phase_train_step(device="cuda", dtype="float32"):
     """Three training steps in each warp + loss mode on one bundle; asserts
     finite losses, changed parameters and each step's kernel launches;
-    -> launches of the whole phase."""
+    then the trainer's mode: the step repeated bit for bit under
+    deterministic cuDNN, and timed with it and without; -> launches of the
+    whole phase."""
     import torch
 
     from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
@@ -665,8 +988,12 @@ def phase_train_step(device="cuda"):
     from unsupervised_pose_estimation_tpu_torch.train.step import \
         build_train_step
 
-    check_train_against_cpu(device)
-    bundle = ModelBundle.create(smoke_options(), seed=0, device=device)
+    if dtype == "float32":
+        check_train_against_cpu(device)
+    else:
+        check_bf16_train_against_cpu(device)
+    bundle = ModelBundle.create(smoke_options(dtype=dtype), seed=0,
+                                device=device)
     state = create_train_state(bundle)
     step = build_train_step(bundle)
     batch = train_batch(torch.Generator().manual_seed(6), device)
@@ -714,20 +1041,58 @@ def phase_train_step(device="cuda"):
               f"{[round(1e3 * t, 3) for t in times[1:]]}", flush=True)
         if device == "cuda":
             print(f"  fused={fused}: peak device memory "
-                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
-                  flush=True)
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+                  f"{dtype}; {card_line()}", flush=True)
+    bundle.cfg.use_pallas_warp_loss = True  # the trainer's mode
+    check_step_repeats(bundle, batch)
+    if device == "cuda":
+        K.reset_counts()
+        time_deterministic_cudnn(step, state, batch, dtype)
+        for name, n in K.counts().items():
+            total[name] += n
     return total
 
 
-@phase("serve")
-def phase_serve(device="cuda"):
-    """16 requests from 4 threads through MicroBatcher -> InferenceEngine."""
+def check_bf16_serving_against_cpu(device):
+    """An InferenceEngine at bfloat16 on the card against one on the CPU
+    with the same weights (seed 3) on the same 4 images at 64x128, held to
+    the CPU's own bfloat16-against-float32 gap (BF16_*)."""
     import numpy as np
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.serve import InferenceEngine
+
+    b, h, w = 4, 64, 128
+    cpu32, cpu16, card = small_bundles(device, b, h, w)
+    images = np.random.default_rng(7).integers(0, 256, (b, h, w, 3),
+                                               dtype=np.uint8)
+    ref, want, got = (
+        InferenceEngine(net.cfg, max_batch=b, bundle=net,
+                        device=next(net.parameters()).device).predict(images)
+        for net in (cpu32, cpu16, card))
+    if got.dtype != np.float32:
+        raise AssertionError(f"bf16 serving returned {got.dtype}")
+    within_bf16_gap(*(torch.from_numpy(x) for x in (got, want, ref)),
+                    "served disparity")
+
+
+def phase_serve(device="cuda", dtype="float32"):
+    """16 requests from 4 threads through MicroBatcher -> InferenceEngine
+    at ``dtype`` (at bfloat16 after a check of the engine against the
+    CPU's)."""
+    import numpy as np
+    import torch
 
     from unsupervised_pose_estimation_tpu_torch.serve import (InferenceEngine,
                                                                MicroBatcher)
 
-    engine = InferenceEngine(smoke_options(), max_batch=8, device=device)
+    if dtype != "float32":
+        check_bf16_serving_against_cpu(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    engine = InferenceEngine(smoke_options(dtype=dtype), max_batch=8,
+                             device=device)
     batcher = MicroBatcher(engine, max_delay_ms=20.0)
     results, errors = [], []
     lock = threading.Lock()
@@ -763,9 +1128,19 @@ def phase_serve(device="cuda"):
     for disp in results:
         if disp.shape != (H, W) or not np.isfinite(disp).all():
             raise AssertionError(f"bad disparity {disp.shape}")
+    seconds = time.perf_counter() - start
     print(f"  16 requests answered, {engine.calls} engine calls, disp range "
           f"[{min(float(d.min()) for d in results):.4f}, "
           f"{max(float(d.max()) for d in results):.4f}]", flush=True)
+    if device == "cuda":
+        from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+
+        print(f"  {dtype}: {1e3 * seconds:.1f} wall ms for the 16 requests "
+              f"(engine construction and the first calls included); peak "
+              f"device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"launches {K.counts()} (serving runs no kernel of the "
+              f"port's); {card_line()}", flush=True)
 
 
 def wave_grid(device):
@@ -1024,21 +1399,20 @@ def phase_ladder(device="cuda"):
 
 
 # The trainer phase: the port's training entry point at the flagship feed.
-TRAIN_ARGS = ["--compute_dtype", "float32", "--weights_init", "scratch",
+TRAIN_ARGS = ["--weights_init", "scratch",
               "--num_epochs", "1", "--log_frequency", "3",
               "--ckpt_frequency", "3", "--num_workers", "8"]
 PARALLAX_ARGS = ["--dataset", "synthetic_parallax", "--steps_per_epoch", "6"]
 # Resumed against the uninterrupted run: the restored parameters, Adam
-# moments, batches and noise are bit-equal, yet the card's forward is not
-# bit-reproducible (the first resumed step's losses differed by 1e-7 of
-# their value in a run) and cuDNN's backward convolutions sum in an order
-# that varies from run to run, which Adam's updates (about lr * sign(g)
-# where a gradient is near zero) carry into the later steps. Measured on
-# the card: losses within 3.1e-6 and gradient norms within 8.8e-4 of their
-# value. A wrong batch or restore moves the losses by several percent (they
-# change by ~20% a step here).
-RESUME_LOSS_RTOL = 1e-4
-RESUME_NORM_RTOL = 1e-2
+# moments, batches and noise are bit-equal, and the trainer's steps are
+# deterministic (cuDNN's deterministic algorithms while it trains,
+# train.loop.deterministic_cudnn, and the networks' own reflect-pad
+# backward, models.layers.reflect_pad1), so every resumed step's losses
+# and gradient norm must be the same bits. (With torch's reflect-pad
+# backward, which adds with atomics, and cuDNN free to choose, resumed steps
+# differed in the last bits.)
+RESUME_LOSS_RTOL = 0.0
+RESUME_NORM_RTOL = 0.0
 LUNG_LINES = 30  # lines per split file of the frame-cache route
 
 
@@ -1144,10 +1518,12 @@ def write_lung_cache(root, h, w):
 
 
 @phase("trainer")
-def phase_trainer(device="cuda"):
-    """The port's cli.train.main at batch B, H x W: six steps with logs,
-    validation and checkpoints at step 3; a second Trainer resumed from
-    that checkpoint; two steps of the lung dataset from a frame cache.
+def phase_trainer(device="cuda", keep_checkpoints=None):
+    """The port's cli.train.main at batch B, H x W at the defaults
+    (bfloat16): six steps with logs, validation and checkpoints at steps 3
+    and 6; a second Trainer resumed from the checkpoint of step 3; two
+    steps of the lung dataset from a frame cache. The main run's
+    checkpoint directory is copied to ``keep_checkpoints`` when given.
     -> kernel launches of the phase."""
     import json as _json
     import os
@@ -1196,7 +1572,11 @@ def phase_trainer(device="cuda"):
             raise AssertionError(f"bad or missing metrics: {bad}")
         print(f"  {card_line()}; TF32 matmul "
               f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN "
-              f"{torch.backends.cudnn.allow_tf32}", flush=True)
+              f"{torch.backends.cudnn.allow_tf32}; cuDNN deterministic "
+              f"after train() {torch.backends.cudnn.deterministic} "
+              f"(restored)", flush=True)
+        if torch.backends.cudnn.deterministic:
+            raise AssertionError("train() left cuDNN deterministic on")
         print(f"  main run: {len(main_run)} steps at batch {B}, {H}x{W} in "
               f"{wall:.2f} s (construction, 2 validations and 2 "
               f"checkpoints included); wall ms between step starts "
@@ -1210,6 +1590,8 @@ def phase_trainer(device="cuda"):
 
         # resume from the checkpoint of step 3 -----------------------
         ckpt = os.path.join(root, "main", "mdp", "models", "checkpoints")
+        if keep_checkpoints is not None:
+            shutil.copytree(ckpt, keep_checkpoints)
         resume_from = os.path.join(root, "resume_from")
         os.makedirs(resume_from)
         shutil.copy(os.path.join(ckpt, "3.pt"), resume_from)
@@ -1289,6 +1671,117 @@ def phase_trainer(device="cuda"):
 
 
 
+# The evaluation phase: the trainer's checkpoint through both evaluation
+# entry points, at the trainer's feed (two batches of B and a tail of 3
+# that drop_last cuts) and, against the CPU, at EVAL_SMALL.
+EVAL_ITEMS = 2 * B + 3
+EVAL_SMALL = (4, 64, 128, 11)  # batch, height, width, items
+
+
+def eval_args(ckpt, split_dir, b, h, w):
+    return ["--load_weights_folder", ckpt, "--height", str(h), "--width",
+            str(w), "--batch_size", str(b), "--dataset",
+            "synthetic_parallax", "--synthetic_rotation", "--split_dir",
+            split_dir, "--eval_split", "smoke"]
+
+
+def evaluate_both(args, device):
+    """cli.evaluate_depth (mono, post_process) and cli.evaluate_pose (no
+    plot: the card's machine has no matplotlib); -> both rows."""
+    from unsupervised_pose_estimation_tpu_torch.cli import (evaluate_depth,
+                                                            evaluate_pose)
+
+    depth = evaluate_depth.main(args + ["--eval_mono", "--post_process"],
+                                device=device)
+    pose = evaluate_pose.main(args + ["--eval_pose_trajectory"],
+                              device=device)
+    return {**depth, **pose}
+
+
+def write_split(root, h, w, n):
+    """A synthetic_parallax eval split of ``n`` items with exact depth and
+    poses under ``root``; -> its split_dir."""
+    from unsupervised_pose_estimation_tpu_torch.config import Options
+    from unsupervised_pose_estimation_tpu_torch.eval.evaluate_depth import \
+        write_synthetic_split
+
+    split_dir = os.path.join(root, f"splits_{h}x{w}")
+    write_synthetic_split(Options(height=h, width=w, split_dir=split_dir,
+                                  eval_split="smoke",
+                                  synthetic_rotation=True), n)
+    return split_dir
+
+
+@phase("evaluation")
+def phase_evaluation(ckpt, device="cuda"):
+    """cli.evaluate_depth and cli.evaluate_pose on the trainer's checkpoint
+    at the defaults (bfloat16): on the card at B, H x W, timed; then at
+    EVAL_SMALL on the card and on the CPU, the disparities (post-processed,
+    with the one-frame tail) and the poses held to the CPU's own
+    bfloat16-against-float32 gap (BF16_*), and each metric within
+    BF16_LOSS times the row's largest relative bf16-float32 gap on the CPU
+    plus 1e-4 of its value."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.config import parse_options
+    from unsupervised_pose_estimation_tpu_torch.eval import evaluate_depth as ED
+    from unsupervised_pose_estimation_tpu_torch.eval import evaluate_pose as EP
+    from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        split_dir = write_split(root, H, W, EVAL_ITEMS)
+        K.reset_counts()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        row = evaluate_both(eval_args(ckpt, split_dir, B, H, W), device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        bad = [k for k, v in row.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite metrics {bad}")
+        print(f"  {EVAL_ITEMS} items at batch {B}, {W}x{H}, bfloat16: "
+              f"{1e3 * wall:.1f} wall ms for both entry points (item "
+              f"rendering included); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"launches {K.counts()}; {card_line()}", flush=True)
+        print(f"  row: {json.dumps(row)}", flush=True)
+
+        b, h, w, n = EVAL_SMALL
+        args = eval_args(ckpt, write_split(root, h, w, n), b, h, w)
+        files = [f"synthetic {i} l" for i in range(n)]
+        disps, poses = [], []
+        for dev, dtype in ((device, "bfloat16"), ("cpu", "bfloat16"),
+                           ("cpu", "float32")):
+            opt = parse_options(args + ["--post_process", "--compute_dtype",
+                                        dtype])
+            disps.append(torch.from_numpy(ED.predict_disparities(
+                opt, ED.load_eval_state(opt, dev), files)))
+            poses.append(torch.from_numpy(EP.predict_pose_sequence(
+                opt, ED.load_eval_state(opt, dev, ("pose_encoder", "pose")),
+                files)))
+        within_bf16_gap(*disps, f"evaluation disparities ({n} items at "
+                                f"batch {b}, {w}x{h}, post-processed)")
+        within_bf16_gap(*poses, "evaluation poses")
+        rows = [evaluate_both(args, device), evaluate_both(args, "cpu"),
+                evaluate_both(args + ["--compute_dtype", "float32"], "cpu")]
+        rel = [{k: abs(r[k] - rows[1][k]) / abs(rows[1][k])
+                for k in rows[1]} for r in (rows[0], rows[2])]
+        gap = max(rel[1].values())
+        worst = max(rel[0][k] / (BF16_LOSS * gap + 1e-4) for k in rel[0])
+        print(f"  metric rows, card vs CPU at bfloat16: worst "
+              f"{worst:.3f} of the bound ({BF16_LOSS}x the CPU row's "
+              f"largest relative bf16-float32 gap {gap:.3e}, plus 1e-4); "
+              f"card {json.dumps(rows[0])}", flush=True)
+        if not worst <= 1.0:
+            raise AssertionError("evaluation on the card disagrees with the "
+                                 "CPU")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -1313,20 +1806,31 @@ def main() -> int:
     if _lib.build_log:
         print(_lib.build_log.strip(), flush=True)
 
+    launches = {name: 0 for name in KERNELS}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] += n
+
     records = phase_kernels()
-    launches = phase_eval_step()
-    K.reset_counts()
-    phase_serve()
-    for name, n in K.counts().items():
-        launches[name] += n
-    for name, n in phase_train_step().items():
-        launches[name] += n
+    for dtype in ("float32", "bfloat16"):
+        add(phase(f"eval_step {dtype}")(phase_eval_step)(dtype=dtype))
+    for dtype in ("float32", "bfloat16"):
+        K.reset_counts()
+        phase(f"serve {dtype}")(phase_serve)(dtype=dtype)
+        add(K.counts())
+    for dtype in ("float32", "bfloat16"):
+        add(phase(f"train_step {dtype}")(phase_train_step)(dtype=dtype))
     ladder_records, ladder_total = phase_ladder()
     records.update(ladder_records)
-    for name, n in ladder_total.items():
-        launches[name] += n
-    for name, n in phase_trainer().items():
-        launches[name] += n
+    add(ladder_total)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        ckpt = os.path.join(work, "checkpoints")
+        add(phase_trainer(keep_checkpoints=ckpt))
+        phase_evaluation(ckpt)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     missing = [name for name, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: none of its modules, and not
-chip_smoke.py, imports JAX, its libraries, PIL or the JAX package; and
-chip_smoke.py on a machine without a CUDA device fails fast without
-printing a result."""
+chip_smoke.py, imports JAX, its libraries, PIL, matplotlib or the JAX
+package; and chip_smoke.py on a machine without a CUDA device fails fast
+without printing a result."""
 
 import os
 import pkgutil
@@ -12,7 +12,7 @@ from pathlib import Path
 import unsupervised_pose_estimation_tpu_torch as port
 
 ROOT = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL",
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "matplotlib",
            "unsupervised_pose_estimation_tpu")
 
 
@@ -83,3 +83,14 @@ def test_trainer_modules_are_among_those_checked():
                  "cli.train"):
         assert f"{port.__name__}.{name}" in modules, name
     assert "PIL" in BLOCKED
+
+
+def test_evaluation_modules_are_among_those_checked():
+    """The evaluation drivers and their entry points are imported, JAX-,
+    PIL- and matplotlib-free, above (both import them only on the routes
+    that need them)."""
+    modules = set(port_modules())
+    for name in ("eval.evaluate_depth", "eval.evaluate_pose",
+                 "cli.evaluate_depth", "cli.evaluate_pose"):
+        assert f"{port.__name__}.{name}" in modules, name
+    assert {"PIL", "matplotlib"} <= set(BLOCKED)

@@ -151,7 +151,8 @@ def test_seeded_init_is_deterministic_and_leaves_global_rng():
                            c["encoder.encoder.conv1.weight"])
 
 
-@pytest.mark.parametrize("kw", [dict(compute_dtype="bfloat16"),
+@pytest.mark.parametrize("kw", [dict(compute_dtype="float32",
+                                     depth_decoder_variant="upstream"),
                                 dict(compute_dtype="float32",
                                      pose_model_type="posecnn"),
                                 dict(compute_dtype="float32",
@@ -178,3 +179,33 @@ def test_reflect_pad_of_one_row(shape):
     if min(shape[2:]) > 1:
         assert torch.equal(reflect_pad1(x),
                            F.pad(x, (1, 1, 1, 1), mode="reflect"))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7), (1, 2, 1, 4), (1, 1, 4, 1),
+                                   (1, 1, 1, 1), (1, 2, 2, 2), (1, 1, 2, 3)])
+def test_reflect_pad_backward_is_the_pads_transpose(shape):
+    """reflect_pad1's own backward (fixed summation order) is the transpose
+    of its forward: on integer-valued float64 gradients, where every order
+    sums exactly, it equals autograd through numpy's pad rule built from
+    torch's one-axis pads."""
+    import torch.nn.functional as F
+
+    from unsupervised_pose_estimation_tpu_torch.models.layers import \
+        reflect_pad1
+
+    def composed(x):
+        for pad, n in (((1, 1, 0, 0), x.shape[-1]),
+                       ((0, 0, 1, 1), x.shape[-2])):
+            x = F.pad(x, pad, mode="reflect" if n > 1 else "replicate")
+        return x
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randint(-9, 10, shape, generator=gen).double()
+    x.requires_grad_()
+    g = torch.randint(-9, 10, (*shape[:2], shape[2] + 2, shape[3] + 2),
+                      generator=gen).double()
+    got, = torch.autograd.grad(reflect_pad1(x), x, g)
+    want, = torch.autograd.grad(composed(x), x, g)
+    assert torch.equal(got, want)
+    assert torch.autograd.gradcheck(reflect_pad1, (torch.randn(
+        shape, dtype=torch.float64, generator=gen, requires_grad=True),))

@@ -107,7 +107,8 @@ class Options:
     imagenet_weights: Optional[str] = None
     lr_scheduler: str = "none"
     depth_decoder_variant: str = "fork"
-    compute_dtype: str = "bfloat16"  # the port runs "float32" only so far
+    compute_dtype: str = "bfloat16"  # the networks' dtype: "bfloat16" or
+    # "float32" (TF32 off on the card); parameters stay float32
     mesh_data: int = -1  # the trainer runs on one device: -1 or 1
     mesh_fsdp: int = 1   # 1 only
     mesh_dcn: int = 1    # 1 only

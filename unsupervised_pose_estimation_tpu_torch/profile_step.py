@@ -5,6 +5,8 @@ step goes, on a CUDA card.
     python -m unsupervised_pose_estimation_tpu_torch.profile_step --train
     python -m unsupervised_pose_estimation_tpu_torch.profile_step --train \
         --warp-version 7
+    python -m unsupervised_pose_estimation_tpu_torch.profile_step --train \
+        --compute_dtype bfloat16
 
 Without ``--train`` it runs the validation step (both ``with_images``
 modes) at batch 12 and the inference step at batch 8; with ``--train``, the
@@ -13,8 +15,9 @@ warp + loss kernels and with the unfused ones. ``--warp-version`` 1-7 sets
 ``pallas_warp_version``: the warps then go through that version's ladder
 (one unfused mode), and each record also gives the host time spent in the
 ladder's gate reads (``upe::warp_ladder_gates``, one device synchronisation
-per warp) and the rungs that ran. All at 640x192 with random weights from a
-seed. It warms each up, then traces ``STEPS`` calls with
+per warp) and the rungs that ran. ``--compute_dtype`` is the networks'
+(float32 by default; TF32 off either way). All at 640x192 with random
+weights from a seed. It warms each up, then traces ``STEPS`` calls with
 ``torch.profiler`` and prints, per call: wall time (host clock around work
 that ends in a synchronize), device busy time (the sum of kernel times),
 the idle share (1 - busy / wall), the kernels that take the most device
@@ -118,6 +121,9 @@ def main():
                         help="profile the training step instead")
     parser.add_argument("--warp-version", type=int, default=8,
                         help="pallas_warp_version (1-7: the warp ladder)")
+    parser.add_argument("--compute_dtype", default="float32",
+                        choices=("float32", "bfloat16"),
+                        help="the networks' dtype")
     args = parser.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -125,9 +131,12 @@ def main():
     print(smi.stdout.strip() or smi.stderr.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    opt = Options(height=H, width=W, batch_size=B, compute_dtype="float32",
+    opt = Options(height=H, width=W, batch_size=B,
+                  compute_dtype=args.compute_dtype,
                   pallas_warp_version=args.warp_version)
     tag = "" if args.warp_version >= 8 else f"_warp_v{args.warp_version}"
+    if args.compute_dtype != "float32":
+        tag += f"_{args.compute_dtype}"
     bundle = ModelBundle.create(opt, seed=0, device="cuda")
     gen = torch.Generator().manual_seed(1)
     batch = _batch(gen, "cuda")
@@ -138,7 +147,7 @@ def main():
         state = create_train_state(bundle)
         step = build_train_step(bundle)
         # below version 8 the loss is never fused: one mode
-        for fused in (True, False) if not tag else (False,):
+        for fused in (True, False) if args.warp_version >= 8 else (False,):
             bundle.cfg.use_pallas_warp_loss = fused
             trace(f"train_step_b{B}_fused_{fused}{tag}",
                   lambda: step(state, batch))
@@ -150,7 +159,7 @@ def main():
               lambda: step(batch, noise))
     infer = build_infer_step(bundle)
     images = batch["color"][:SERVE_BATCH, 0].float() / 255.0
-    trace(f"infer_b{SERVE_BATCH}", lambda: infer(images))
+    trace(f"infer_b{SERVE_BATCH}{tag}", lambda: infer(images))
 
 
 if __name__ == "__main__":

@@ -24,12 +24,13 @@ from .config import Options
 from .ops.geometry import disp_to_depth
 from .train.bundle import ModelBundle
 from .train.checkpoint import load_weights
-from .train.loop import resolve_device
+from .train.loop import float32_setting, resolve_device
 from .train.step import build_infer_step
 
 
 class InferenceEngine:
-    """Batched depth inference on one device."""
+    """Batched depth inference on one device, at ``opt.compute_dtype``;
+    disparities come back in float32."""
 
     def __init__(self, opt: Options, max_batch: int = 8, device="cuda",
                  bundle: Optional[ModelBundle] = None):
@@ -42,6 +43,7 @@ class InferenceEngine:
         self.max_batch = max_batch
         self.height, self.width = opt.height, opt.width
         self.device = resolve_device(device)
+        print(float32_setting(opt))
         if bundle is None:
             bundle = ModelBundle.create(opt, seed=opt.seed,
                                         device=self.device)

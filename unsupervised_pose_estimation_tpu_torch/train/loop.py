@@ -6,11 +6,14 @@ and the global step: the training step's automask noise comes from
 ``noise_generator(seed, step)``, validation's from ``(seed + 2, step)``,
 and the Loader's shuffle and item draws from the seed, the epoch and the
 index. So a run resumed from a checkpoint at step N replays the batches and
-the noise of an uninterrupted run from step N on.
+the noise of an uninterrupted run from step N on; and ``train()`` runs
+cuDNN's deterministic algorithms (``deterministic_cudnn``), so that on the
+card it also computes the same steps, bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -49,6 +52,34 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def float32_setting(cfg: Options) -> str:
+    """At ``compute_dtype="float32"`` turn TF32 off for matmuls and cuDNN's
+    convolutions (cuDNN's default is on), so that float32 means float32 on
+    the card; -> the setting, for the log."""
+    if cfg.compute_dtype == "float32":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return (f"compute dtype {cfg.compute_dtype}; TF32 matmul "
+            f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+            f"{torch.backends.cudnn.allow_tf32}")
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """Restrict cuDNN to algorithms that sum in a fixed order while the body
+    runs, then restore the setting (the flag is process-wide). With them,
+    and the networks' deterministic reflect-pad backward
+    (``models.layers.reflect_pad1``), the same parameters, batch and noise
+    give the same training step on the card, so a resumed run repeats an
+    uninterrupted one bit for bit."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
 class Trainer:
     def __init__(self, options: Options, lr: Optional[float] = None,
                  sampling: Optional[int] = None, device="cuda"):
@@ -72,6 +103,8 @@ class Trainer:
 
         print(f"learning rate {cfg.learning_rate} "
               f"sampling frequency : {cfg.sampling_frequency}")
+        print(float32_setting(cfg))
+        print("cuDNN deterministic algorithms while training")
 
         self.log_path = os.path.join(cfg.log_dir, cfg.model_name)
         os.makedirs(self.log_path, exist_ok=True)
@@ -211,14 +244,15 @@ class Trainer:
         spe = max(self.steps_per_epoch, 1)
         start_epoch = start_step // spe
         try:
-            for self.epoch in range(start_epoch, cfg.num_epochs):
-                # mid-epoch resume: the checkpointed step places the run,
-                # and the Loader replays the rest of the epoch
-                start_batch = start_step - self.epoch * spe \
-                    if self.epoch == start_epoch else 0
-                self.run_epoch(start_batch)
-                if (self.epoch + 1) % cfg.save_frequency == 0:
-                    self.save()
+            with deterministic_cudnn():
+                for self.epoch in range(start_epoch, cfg.num_epochs):
+                    # mid-epoch resume: the checkpointed step places the
+                    # run, and the Loader replays the rest of the epoch
+                    start_batch = start_step - self.epoch * spe \
+                        if self.epoch == start_epoch else 0
+                    self.run_epoch(start_batch)
+                    if (self.epoch + 1) % cfg.save_frequency == 0:
+                        self.save()
         finally:
             self.close()
         return self.state

@@ -14,7 +14,9 @@ gradient. With ``pallas_warp_version`` 1-7 every warp goes instead through
 that version's ladder (``ops.kernels.grid_sample_fast``: the corner-fetch
 kernels K6-K8, or a plain gather) where the shape allows it, else through
 the plain ``ops.warp.grid_sample``; the loss is then always K3 and K4, as
-the reference's fused op needs version 8.
+the reference's fused op needs version 8. The networks compute at
+``cfg.compute_dtype``; their disparities and poses, and everything after
+them, are float32.
 """
 
 from __future__ import annotations
@@ -49,6 +51,15 @@ def _nchw(x):
 
 def _nhwc(x):
     return x.permute(0, 2, 3, 1)
+
+
+def _check_float32(**tensors):
+    """The networks return float32 disparities and poses at any compute
+    dtype (the reference's float32 sigmoid and pose mean), so the loss and
+    the kernels, which take float32 only, never see bfloat16."""
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the loss takes float32")
 
 
 def predict_poses(bundle: ModelBundle, aug: Dict[int, torch.Tensor]):
@@ -118,6 +129,8 @@ def forward_and_loss(bundle: ModelBundle, batch, train: bool = False,
     features = bundle.encoder(aug[0])
     disps = {s: _nhwc(d) for s, d in bundle.depth(features).items()}
     poses = predict_poses(bundle, aug)
+    _check_float32(**{f"disp/{s}": d for s, d in disps.items()},
+                   **{f"pose/{f}": p for f, p in poses.items()})
 
     def reproj_fn(pred_p, tgt_p):
         if cfg.no_ssim:
