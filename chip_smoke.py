@@ -62,7 +62,22 @@ Phases, each timed on its own line:
    ``cli.evaluate_pose`` on phase 7's last checkpoint, over a split of
    ``synthetic_parallax`` items with their exact depth and poses, at the
    trainer's feed (timed) and, against the same entry points and functions
-   on the CPU, at a small size.
+   on the CPU, at a small size;
+9. the training options (``OPTION_GROUPS``: A, a shared pose network with
+   the stereo frame and v1 multiscale; B, PoseCNN over all frames with the
+   predictive mask and the upstream decoder; C, the separate pose network
+   over all frames): each group's two training steps on the card against
+   the CPU's at a small size, in float32 and in bfloat16 (as phase 5);
+   K6 on a float frame at version 8 (v1 multiscale's scale-0 warp); each
+   group's three training steps and one validation step at batch 12,
+   640x192, in bfloat16 and in float32, with wall ms, peak memory,
+   launches and the rungs of the
+   float-frame warps, and the step repeated bit for bit under deterministic
+   cuDNN; ``cli.train`` with ``OPTION_TRAIN_ARGS`` at 640x192 for three
+   steps with a checkpoint at step 2 and a resumed step 3 that is
+   bit-equal; ``cli.evaluate_depth`` and an ``InferenceEngine`` on a
+   ``.pth`` folder whose ``depth.pth`` is an upstream decoder, each
+   building the detected variant.
 
 It prints one JSON line of kernel records, then, as its last line, the
 device record. Any failure ends it with a non-zero exit code; without a
@@ -288,13 +303,15 @@ def phase_kernels():
     # interior tiles take the vector loads beside a last tile that does not;
     # there also with 4 and 1 channels (other instances of the kernels'
     # channel template; K2 and K4 at 4 channels take over 48 KB of shared
-    # memory). K4 in both modes: without the target's gradient its dL/dpred
-    # must be the same bits.
+    # memory); and the pyramid's levels 1-3 under v1_multiscale (phase 9's
+    # group A runs K3 and K4 at these shapes). K4 in both modes: without
+    # the target's gradient its dL/dpred must be the same bits.
     g_up = torch.rand((B, H, W), generator=gen).to("cuda")
     rgen = torch.Generator().manual_seed(1)
     cases = [(src, target, small, wild, g_up, f"{B}x{H}x{W}")]
+    pyramid = tuple((B, H >> s, W >> s, C) for s in (1, 2, 3))
     for b, h, w, c in ((2, 50, 70, 3), (1, 9, 33, 3), (2, 50, 68, 3),
-                       (2, 50, 70, 4), (1, 9, 33, 1)):
+                       (2, 50, 70, 4), (1, 9, 33, 1)) + pyramid:
         cases.append((*make_inputs(rgen, "cuda", b, h, w, c),
                       torch.rand((b, h, w), generator=rgen).to("cuda"),
                       f"{b}x{h}x{w}" + ("" if c == C else f"x{c}")))
@@ -387,25 +404,51 @@ def phase_kernels():
     return records
 
 
-def smoke_batch(gen, device, b=None, h=None, w=None):
+def smoke_batch(gen, device, b=None, h=None, w=None, stereo=False):
     """A validation batch (the main path's shapes unless given): three
-    random uint8 frames per item and KITTI-like normalised intrinsics."""
+    random uint8 frames per item and KITTI-like normalised intrinsics;
+    with ``stereo`` a fourth frame and a stereo_T of baseline 0.1."""
     import torch
 
     b, h, w = b or B, h or H, w or W
-    color = torch.randint(0, 256, (b, 3, h, w, 3), generator=gen,
+    color = torch.randint(0, 256, (b, 3 + stereo, h, w, 3), generator=gen,
                           dtype=torch.uint8)
     K_norm = torch.tensor([[0.58, 0, 0.5, 0], [0, 1.92, 0.5, 0],
                            [0, 0, 1, 0], [0, 0, 0, 1]], dtype=torch.float32)
-    return {"color": color.to(device), "color_aug": color.clone().to(device),
-            "K_norm": K_norm.expand(b, 4, 4).contiguous().to(device)}
+    batch = {"color": color.to(device), "color_aug": color.clone().to(device),
+             "K_norm": K_norm.expand(b, 4, 4).contiguous().to(device)}
+    if stereo:
+        stereo_T = torch.eye(4).repeat(b, 1, 1)
+        stereo_T[:, 0, 3] = 0.1
+        batch["stereo_T"] = stereo_T.to(device)
+    return batch
 
 
-def smoke_options(b=None, h=None, w=None, dtype="float32"):
+def smoke_options(b=None, h=None, w=None, dtype="float32", **options):
     from unsupervised_pose_estimation_tpu_torch.config import Options
 
     return Options(height=h or H, width=w or W, batch_size=b or B,
-                   compute_dtype=dtype)
+                   compute_dtype=dtype, **options)
+
+
+def smoke_noise(gen, cfg, b, h, w):
+    """Automask tie-break noise of ``cfg`` on the CPU: {scale: (b, h, w,
+    sources)}, at each scale's own size under v1_multiscale; None without
+    automasking."""
+    import torch
+
+    if cfg.disable_automasking:
+        return None
+    sources = len(cfg.frame_ids) - 1 + cfg.use_stereo
+    multi = cfg.v1_multiscale
+    return {s: torch.randn((b, h >> s if multi else h, w >> s if multi else w,
+                            sources), generator=gen) * 1e-5
+            for s in cfg.scales}
+
+
+def to_device(noise, device):
+    return None if noise is None else {s: n.to(device)
+                                       for s, n in noise.items()}
 
 
 # bfloat16 on the card against bfloat16 on the CPU: both round every layer
@@ -500,17 +543,18 @@ def check_against_cpu(device):
           f"(tol 1e-4)", flush=True)
 
 
-def small_bundles(device, b, h, w):
-    """The bundle of seed 3 at B=b, h x w on the CPU in float32 and in
-    bfloat16 (the same weights) and a copy of the bfloat16 one on
-    ``device``."""
+def small_bundles(device, b, h, w, options=None):
+    """The bundle of seed 3 (with ``options``) at B=b, h x w on the CPU in
+    float32 and in bfloat16 (the same weights) and a copy of the bfloat16
+    one on ``device``."""
     import copy
 
     from unsupervised_pose_estimation_tpu_torch.train.bundle import \
         ModelBundle
 
-    cpu32, cpu16 = (ModelBundle.create(smoke_options(b, h, w, dt), seed=3,
-                                       device="cpu")
+    cpu32, cpu16 = (ModelBundle.create(smoke_options(b, h, w, dt,
+                                                     **(options or {})),
+                                       seed=3, device="cpu")
                     for dt in ("float32", "bfloat16"))
     return cpu32, cpu16, copy.deepcopy(cpu16).to(device)
 
@@ -622,12 +666,12 @@ AUG_ROWS = [[1.0, 1.1, 0.9, 1.15, 0.05, 1.0], [1.0, 0.9, 1.1, 0.85, -0.04, 0.0],
 LR = 1e-4
 
 
-def train_batch(gen, device, b=None, h=None, w=None):
+def train_batch(gen, device, b=None, h=None, w=None, stereo=False):
     """A training batch: smoke_batch's frames and intrinsics, and per-item
     jitter factors (aug_params) in place of color_aug."""
     import torch
 
-    batch = smoke_batch(gen, device, b, h, w)
+    batch = smoke_batch(gen, device, b, h, w, stereo)
     del batch["color_aug"]
     n = batch["color"].shape[0]
     rows = torch.tensor(AUG_ROWS, dtype=torch.float32)
@@ -635,7 +679,8 @@ def train_batch(gen, device, b=None, h=None, w=None):
     return batch
 
 
-def check_train_against_cpu(device, version=8, steps=2, networks=True):
+def check_train_against_cpu(device, version=8, steps=2, networks=True,
+                            options=None):
     """Two training steps on the card against the same two on the CPU
     (plain kernel versions), at B=2, 64x128, with the same batch,
     augmentation and automask noise. Each step starts both sides from the
@@ -656,7 +701,8 @@ def check_train_against_cpu(device, version=8, steps=2, networks=True):
     gradient to 1e-10 of its own largest value in float64
     (``check_networks_float64``, read 3.4e-14). ``version`` is the warp
     ladder's (``pallas_warp_version``), ``steps`` how many steps run,
-    ``networks`` whether the float64 network check follows."""
+    ``networks`` whether the float64 network check follows, ``options``
+    more Options fields (a training option group, phase 9)."""
     import copy
 
     import torch
@@ -671,14 +717,14 @@ def check_train_against_cpu(device, version=8, steps=2, networks=True):
         build_train_step
 
     b, h, w = 2, 64, 128
-    opt = smoke_options(b, h, w)
+    opt = smoke_options(b, h, w, **(options or {}))
     opt.pallas_warp_version = version
     cpu = ModelBundle.create(opt, seed=3, device="cpu")
     card = copy.deepcopy(cpu).to(device)
     runs = [(x, create_train_state(x), build_train_step(x))
             for x in (cpu, card)]
     gen = torch.Generator().manual_seed(5)
-    batch = train_batch(gen, "cpu", b, h, w)
+    batch = train_batch(gen, "cpu", b, h, w, opt.use_stereo)
     aug_err = float((batch_augment(batch["color"].to(device),
                                    batch["aug_params"].to(device)).cpu()
                      - batch_augment(batch["color"], batch["aug_params"])
@@ -689,14 +735,14 @@ def check_train_against_cpu(device, version=8, steps=2, networks=True):
         raise AssertionError("batch_augment on the card differs from the "
                              "CPU")
     names = [n for n, _ in cpu.named_parameters()]
+    label = f" {json.dumps(options)}" if options else ""
     for k in range(steps):
         card.load_state_dict(cpu.state_dict())
-        noise = {s: torch.randn((b, h, w, 2), generator=gen) * 1e-5
-                 for s in range(4)}
+        noise = smoke_noise(gen, opt, b, h, w)
         want = runs[0][2](runs[0][1], batch, noise=noise)
         got = runs[1][2](runs[1][1], {n: v.to(device)
                                       for n, v in batch.items()},
-                         noise={s: v.to(device) for s, v in noise.items()})
+                         noise=to_device(noise, device))
         rel = {n: abs(float(got[n]) - float(v)) / abs(float(v))
                for n, v in want.items()}
         worst = max((n for n in rel if n != "grad_norm"), key=rel.get)
@@ -711,7 +757,8 @@ def check_train_against_cpu(device, version=8, steps=2, networks=True):
         stats = max(float((card_sd[n].cpu() - cpu_sd[n]).abs().max())
                     for n in cpu_sd if "running" in n)
         norm_tol = 1e-4 if k == 0 else 1e-3
-        print(f"  card vs CPU, version {version}, step {k + 1}: losses "
+        print(f"  card vs CPU, version {version}{label}, step {k + 1}: "
+              f"losses "
               f"worst relative error "
               f"{rel[worst]:.3e} ({worst}; tol 1e-4), grad_norm "
               f"{rel['grad_norm']:.3e} (tol {norm_tol:g}), gradient L2 "
@@ -793,7 +840,9 @@ def bf16_gradient_checks(card, cpu, cpu_f32):
         return statistics.median(dot(g[n], cpu[n]) / dot(cpu[n], cpu[n])
                                  for n in names if n.startswith(net))
 
-    nets = ("encoder.", "depth.", "pose_encoder.", "pose.")
+    nets = [net for net in ("encoder.", "depth.", "pose_encoder.", "pose.",
+                            "predictive_mask.")
+            if any(n.startswith(net) for n in names)]
     ref_dev = max(abs(scale(cpu_f32, net) - 1.0) for net in nets)
     devs = {net: abs(scale(card, net) - 1.0) for net in nets}
     print(f"  bf16 gradient, card vs CPU: L2 {err:.3e} = {err / gap:.2f}x "
@@ -807,7 +856,7 @@ def bf16_gradient_checks(card, cpu, cpu_f32):
                      if not d <= BF16_MEAN * ref_dev]
 
 
-def check_bf16_train_against_cpu(device):
+def check_bf16_train_against_cpu(device, options=None):
     """One bfloat16 training step on the card against the CPU's, from the
     same weights (seed 3), batch, augmentation and automask noise at B=2,
     64x128, each with its own Adam: the losses and the gradient held to the
@@ -815,7 +864,9 @@ def check_bf16_train_against_cpu(device):
     the share of parameters whose Adam update has the other sign than the
     CPU's within BF16_MEAN times the share between the CPU's bfloat16 and
     float32 updates; the BatchNorm statistics within BF16_MAX times the
-    CPU's gap; parameters, gradients and Adam's moments float32."""
+    CPU's gap; parameters, gradients and Adam's moments float32.
+    ``options``: more Options fields (a training option group, phase
+    9)."""
     import torch
 
     from unsupervised_pose_estimation_tpu_torch.train.state import \
@@ -824,11 +875,11 @@ def check_bf16_train_against_cpu(device):
         build_train_step
 
     b, h, w = 2, 64, 128
-    nets = small_bundles(device, b, h, w)
+    nets = small_bundles(device, b, h, w, options)
+    cfg = nets[0].cfg
     gen = torch.Generator().manual_seed(5)
-    batch = train_batch(gen, "cpu", b, h, w)
-    noise = {s: torch.randn((b, h, w, 2), generator=gen) * 1e-5
-             for s in range(4)}
+    batch = train_batch(gen, "cpu", b, h, w, cfg.use_stereo)
+    noise = smoke_noise(gen, cfg, b, h, w)
     init = {n: p.detach().clone() for n, p in nets[0].named_parameters()}
     out = []
     for net in nets:
@@ -836,7 +887,7 @@ def check_bf16_train_against_cpu(device):
         state = create_train_state(net)
         losses = build_train_step(net)(
             state, {k: v.to(dev) for k, v in batch.items()},
-            noise={s: v.to(dev) for s, v in noise.items()})
+            noise=to_device(noise, dev))
         moments = [t for st in state.optimizer.state.values()
                    for t in st.values() if torch.is_tensor(t)]
         if any(t.dtype != torch.float32 for t in [
@@ -877,23 +928,16 @@ def check_step_repeats(bundle, batch):
     """The training step's forward and backward twice from the same
     parameters, batch and noise under the trainer's setting
     (``train.loop.deterministic_cudnn``): the losses and every gradient
-    must be the same bits (torch's own reflect-pad backward, which the
-    networks no longer use, differed on every repeat on the H100)."""
+    must be the same bits."""
     import torch
 
-    import torch.nn.functional as F
-
-    from unsupervised_pose_estimation_tpu_torch.models.layers import \
-        reflect_pad1
     from unsupervised_pose_estimation_tpu_torch.train.loop import \
         deterministic_cudnn
     from unsupervised_pose_estimation_tpu_torch.train.step import \
         forward_and_loss
 
-    gen = torch.Generator(batch["color"].device).manual_seed(9)
-    noise = {s: torch.randn((B, H, W, 2), generator=gen,
-                            device=batch["color"].device) * 1e-5
-             for s in range(4)}
+    noise = to_device(smoke_noise(torch.Generator().manual_seed(9),
+                                  bundle.cfg, B, H, W), batch["color"].device)
     runs = []
     with deterministic_cudnn():
         for _ in range(2):
@@ -906,28 +950,40 @@ def check_step_repeats(bundle, batch):
     (l0, g0), (l1, g1) = runs
     differ = [k for k in l0 if not torch.equal(l0[k], l1[k])] + [
         n for n in g0 if not torch.equal(g0[n], g1[n])]
-    # why the networks pad with their own backward: torch's, repeated
-    x = torch.randn((B, 16, H, W), generator=gen, device=gen.device,
-                    dtype=getattr(torch, bundle.cfg.compute_dtype))
+    bundle.zero_grad(set_to_none=True)
+    print(f"  the step twice under deterministic cuDNN: losses and "
+          f"{len(g0)} gradients bit-equal: {not differ}", flush=True)
+    if differ:
+        raise AssertionError(f"a repeated step differs in {differ[:5]}")
+
+
+def check_reflect_pad_repeats(device, dtype):
+    """Why the networks pad with their own backward: torch's reflect-pad
+    backward, repeated, differed on every repeat on the H100;
+    ``models.layers.reflect_pad1``'s must give the same bits."""
+    import torch
+    import torch.nn.functional as F
+
+    from unsupervised_pose_estimation_tpu_torch.models.layers import \
+        reflect_pad1
+
+    gen = torch.Generator(device).manual_seed(9)
+    x = torch.randn((B, 16, H, W), generator=gen, device=device,
+                    dtype=getattr(torch, dtype))
     x.requires_grad_()
     padded = F.pad(x, (1, 1, 1, 1), mode="reflect")
-    g = torch.randn(padded.shape, generator=gen, device=gen.device,
+    g = torch.randn(padded.shape, generator=gen, device=device,
                     dtype=x.dtype)
     grads = [torch.autograd.grad(padded, x, g, retain_graph=True)[0]
              for _ in range(6)]
     torch_differs = sum(not torch.equal(grads[0], t) for t in grads[1:])
     mine = [torch.autograd.grad(reflect_pad1(x), x, g)[0] for _ in range(6)]
     mine_differs = sum(not torch.equal(mine[0], t) for t in mine[1:])
-    print(f"  the step twice under deterministic cuDNN: losses and "
-          f"{len(g0)} gradients bit-equal: {not differ}; reflect-pad "
-          f"backward at {tuple(x.shape)}, 5 repeats against the first: "
-          f"torch's differed {torch_differs}, reflect_pad1's {mine_differs}",
-          flush=True)
+    print(f"  reflect-pad backward at {tuple(x.shape)}, 5 repeats against "
+          f"the first: torch's differed {torch_differs}, reflect_pad1's "
+          f"{mine_differs}", flush=True)
     if mine_differs:
         raise AssertionError("reflect_pad1's backward is not repeatable")
-    if differ:
-        raise AssertionError(f"a repeated step differs in {differ[:5]}")
-    bundle.zero_grad(set_to_none=True)
 
 
 DET_ROUNDS, DET_STEPS = 16, 3
@@ -1045,6 +1101,7 @@ def phase_train_step(device="cuda", dtype="float32"):
                   f"{dtype}; {card_line()}", flush=True)
     bundle.cfg.use_pallas_warp_loss = True  # the trainer's mode
     check_step_repeats(bundle, batch)
+    check_reflect_pad_repeats(device, dtype)
     if device == "cuda":
         K.reset_counts()
         time_deterministic_cudnn(step, state, batch, dtype)
@@ -1782,6 +1839,279 @@ def phase_evaluation(ckpt, device="cuda"):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# The options phase: the training options beyond the defaults, one group
+# per tests/test_torch_options_*.py file.
+OPTION_GROUPS = {
+    "A": dict(pose_model_type="shared", use_stereo=True, v1_multiscale=True),
+    "B": dict(pose_model_type="posecnn", pose_model_input="all",
+              predictive_mask=True, disable_automasking=True,
+              depth_decoder_variant="upstream"),
+    "C": dict(pose_model_input="all"),
+}
+OPTION_TRAIN_ARGS = ["--pose_model_type", "posecnn", "--pose_model_input",
+                     "all", "--v1_multiscale", "--depth_decoder_variant",
+                     "upstream"]
+K6_RUNGS = ("v1", "v2", "v3", "v4", "v5", "v3_wide")
+
+
+def option_launches(cfg, train):
+    """The kernel launches of one step of ``cfg`` at B, H x W (version 8)
+    apart from K6's, which depend on the data: the fused K1 (and K2) per
+    scale and source, or under v1_multiscale K3 for each warped and each
+    identity plane (and K4 for each warped one); K3 for each source's
+    identity loss with automasking."""
+    scales, sources = len(cfg.scales), len(cfg.frame_ids) - 1 + cfg.use_stereo
+    out = {name: 0 for name in KERNELS}
+    if cfg.v1_multiscale:
+        out["reproj_loss"] = 2 * scales * sources
+        out["reproj_loss_bwd"] = scales * sources if train else 0
+    else:
+        out["warp_reproj_loss"] = scales * sources
+        out["warp_reproj_loss_bwd"] = scales * sources if train else 0
+        out["reproj_loss"] = 0 if cfg.disable_automasking else sources
+    return out
+
+
+def check_float_warp_k6(device):
+    """K6 on float frames at version 8, as v1_multiscale's scale-0 warps
+    reach it: the float32 frame through grid_sample_fast on a small-motion
+    grid (the v4 rung's gate holds) on the card against the same call on
+    the CPU (the plain twins), values at TOL and the one K6 launch
+    counted."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator().manual_seed(21)
+    src, _, small, _ = make_inputs(gen, "cpu")
+    frame = src.float() / 255.0
+    want = K.grid_sample_fast(frame, small, planar_out=True, version=8,
+                              planar_grid=True)
+    K.reset_counts()
+    got = K.grid_sample_fast(frame.to(device), small.to(device),
+                             planar_out=True, version=8, planar_grid=True)
+    launches, rungs = K.counts(), K.rung_counts()
+    err = float((got.cpu() - want).abs().max())
+    print(f"  K6 on a float32 frame at version 8, {W}x{H}, small motion: "
+          f"max_abs_err {err:.3e} against the CPU (tol {TOL:g}); rungs "
+          f"{ {k: v for k, v in rungs.items() if v} }, fetch_corners "
+          f"launches {launches['fetch_corners']}", flush=True)
+    if not (err <= TOL and rungs["v4"] == 1 and (
+            device != "cuda" or launches["fetch_corners"] == 1)):
+        raise AssertionError("K6 on a float frame disagrees or did not "
+                             "launch")
+
+
+def run_option_group(name, device, dtype="bfloat16"):
+    """Three training steps and one validation step of group ``name`` at
+    B, H x W, the networks at ``dtype``; asserts finite losses and each
+    step's launches, then the step repeated bit for bit; -> launches of
+    the steps."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+    from unsupervised_pose_estimation_tpu_torch.train.bundle import \
+        ModelBundle
+    from unsupervised_pose_estimation_tpu_torch.train.state import \
+        create_train_state
+    from unsupervised_pose_estimation_tpu_torch.train.step import (
+        build_eval_step, build_train_step)
+
+    opts = OPTION_GROUPS[name]
+    bundle = ModelBundle.create(smoke_options(dtype=dtype, **opts),
+                                seed=0, device=device)
+    cfg = bundle.cfg
+    state = create_train_state(bundle)
+    step = build_train_step(bundle)
+    gen = torch.Generator().manual_seed(22)
+    batch = train_batch(gen, device, stereo=cfg.use_stereo)
+    total = {k: 0 for k in KERNELS}
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for k in range(4):
+        train = k < 3
+        K.reset_counts()
+        start = time.perf_counter()
+        if train:
+            values = step(state, batch)
+        else:
+            values = build_eval_step(bundle)(
+                batch, generator=torch.Generator(device).manual_seed(23))[0]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - start)
+        launches, rungs = K.counts(), K.rung_counts()
+        values = {n: float(v) for n, v in values.items()}
+        bad = [n for n, v in values.items() if not math.isfinite(v)]
+        want = option_launches(cfg, train)
+        k6 = sum(rungs[r] for r in K6_RUNGS)
+        want["fetch_corners"] = k6
+        scale0 = len(cfg.frame_ids) - 1 + cfg.use_stereo
+        ladder_ok = (sum(rungs.values()) == scale0 if cfg.v1_multiscale
+                     else not any(rungs.values()))
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if device == "cuda" else float("nan"))
+        print(f"  group {name} {dtype} {'train' if train else 'validation'} "
+              f"step: "
+              f"{ms:.1f} wall ms, peak {peak:.3f} GiB, loss "
+              f"{values['loss']:.6f}, launches "
+              f"{ {n: v for n, v in launches.items() if v} }, rungs "
+              f"{ {r: v for r, v in rungs.items() if v} }", flush=True)
+        if bad or (device == "cuda" and launches != want) or not ladder_ok:
+            raise AssertionError(f"group {name}: non-finite {bad}, launches "
+                                 f"{launches} (expected {want}), rungs "
+                                 f"{rungs}")
+        for n in total:
+            total[n] += launches[n]
+    check_step_repeats(bundle, batch)
+    return total
+
+
+def write_upstream_folder(folder):
+    """A .pth folder of reference layout written from the port's own
+    modules: ``encoder.pth`` and an upstream ``depth.pth`` (seed 4);
+    -> the bundle that wrote it (on the CPU, bfloat16)."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.train.bundle import \
+        ModelBundle
+
+    os.makedirs(folder)
+    bundle = ModelBundle.create(smoke_options(
+        dtype="bfloat16", depth_decoder_variant="upstream"), seed=4,
+        device="cpu")
+    torch.save({**bundle.encoder.state_dict(), "height": H, "width": W,
+                "use_stereo": False}, os.path.join(folder, "encoder.pth"))
+    torch.save(bundle.depth.state_dict(), os.path.join(folder, "depth.pth"))
+    return bundle
+
+
+def check_option_entry_points(root, device):
+    """cli.train with OPTION_TRAIN_ARGS for 3 steps at B, H x W, a
+    checkpoint at step 2 and a Trainer resumed from it whose step 3 and
+    final state are bit-equal; then cli.evaluate_depth and an
+    InferenceEngine on a .pth folder holding an upstream decoder, with the
+    options at the default (fork) variant: both must build the detected
+    upstream decoder. -> kernel launches of the training runs."""
+    import io
+
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.cli import evaluate_depth
+    from unsupervised_pose_estimation_tpu_torch.cli.train import main as train
+    from unsupervised_pose_estimation_tpu_torch.config import parse_options
+    from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+    from unsupervised_pose_estimation_tpu_torch.serve import InferenceEngine
+    from unsupervised_pose_estimation_tpu_torch.train import loop
+    from unsupervised_pose_estimation_tpu_torch.train.step import \
+        build_infer_step
+
+    args = TRAIN_ARGS + OPTION_TRAIN_ARGS + [
+        "--batch_size", str(B), "--height", str(H), "--width", str(W),
+        "--dataset", "synthetic_parallax", "--steps_per_epoch", "3",
+        "--ckpt_frequency", "2"]
+    straight, resumed = [], []
+    K.reset_counts()
+    undo = recording_steps(loop, straight)
+    try:
+        first = train(args + ["--log_dir", os.path.join(root, "a")],
+                      device=device)
+    finally:
+        undo()
+    ckpt = os.path.join(root, "a", "mdp", "models", "checkpoints")
+    resume_from = os.path.join(root, "resume_from")
+    os.makedirs(resume_from)
+    shutil.copy(os.path.join(ckpt, "2.pt"), resume_from)
+    undo = recording_steps(loop, resumed)
+    try:
+        second = loop.Trainer(parse_options(args + [
+            "--log_dir", os.path.join(root, "b"),
+            "--load_weights_folder", resume_from]), device=device)
+        second.train()
+    finally:
+        undo()
+    launches = K.counts()
+    if [s for s, *_ in straight] != [0, 1, 2] or \
+            [s for s, *_ in resumed] != [2]:
+        raise AssertionError("the option runs took other steps")
+    (_, batch_a, _, losses_a), (_, batch_b, _, losses_b) = (straight[2],
+                                                            resumed[0])
+    same = (all(torch.equal(batch_a[k], batch_b[k]) for k in batch_a)
+            and all(torch.equal(losses_a[k], losses_b[k]) for k in losses_a))
+    sa, sb = first.bundle.state_dict(), second.bundle.state_dict()
+    same_state = all(torch.equal(sa[k], sb[k]) for k in sa)
+    print(f"  cli.train {' '.join(OPTION_TRAIN_ARGS)} at batch {B}, {W}x{H}:"
+          f" 3 steps, resumed step 3 bit-equal (batch, losses) {same}, "
+          f"final parameters and statistics bit-equal {same_state}; "
+          f"decoder {first.bundle.depth.variant}; launches "
+          f"{ {n: v for n, v in launches.items() if v} }", flush=True)
+    if not (same and same_state and first.bundle.depth.variant == "upstream"
+            and (device != "cuda" or launches["reproj_loss_bwd"] > 0)):
+        raise AssertionError("the options' resumed run is not bit-equal")
+
+    folder = os.path.join(root, "pth")
+    source = write_upstream_folder(folder)
+    split_dir = write_split(root, H, W, B)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        row = evaluate_depth.main(
+            ["--load_weights_folder", folder, "--height", str(H),
+             "--width", str(W), "--batch_size", str(B), "--dataset",
+             "synthetic_parallax", "--split_dir", split_dir, "--eval_split",
+             "smoke", "--eval_mono"], device=device)
+    print(out.getvalue().strip(), flush=True)
+    engine = InferenceEngine(parse_options(
+        ["--load_weights_folder", folder, "--height", str(H), "--width",
+         str(W)]), max_batch=4, device=device)
+    images = torch.rand((4, H, W, 3), generator=torch.Generator()
+                        .manual_seed(24))
+    got = engine.predict(images.numpy())
+    want = build_infer_step(source.to(device))(images.to(device))[0][..., 0]
+    err = float((torch.from_numpy(got) - want.cpu()).abs().max())
+    print(f"  .pth folder with an upstream decoder, options at the fork "
+          f"variant: cli.evaluate_depth abs_rel {row['abs_rel']:.4f}; "
+          f"InferenceEngine decoder {engine.bundle.depth.variant}, "
+          f"disparities against the writing bundle's max abs error "
+          f"{err:.3e} (tol {TOL:g})", flush=True)
+    if "detected as 'upstream'" not in out.getvalue() or \
+            engine.bundle.depth.variant != "upstream" or err > TOL or \
+            not all(math.isfinite(v) for v in row.values()):
+        raise AssertionError("the upstream .pth folder was not evaluated "
+                             "and served as its detected variant")
+    return launches
+
+
+@phase("options")
+def phase_options(device="cuda"):
+    """The training options of OPTION_GROUPS: each group's two training
+    steps on the card against the CPU at a small size, in float32 and in
+    bfloat16; K6 on a float frame at version 8; each group's steps at B,
+    H x W in bfloat16 and in float32 with its launches, rungs, wall ms and
+    peak memory;
+    the entry points with the options. -> launches of the phase's runs."""
+    for name, opts in OPTION_GROUPS.items():
+        check_train_against_cpu(device, networks=False, options=opts)
+        check_bf16_train_against_cpu(device, options=opts)
+    check_float_warp_k6(device)
+    total = {k: 0 for k in KERNELS}
+    for name in OPTION_GROUPS:
+        for dtype in ("bfloat16", "float32"):
+            for k, v in run_option_group(name, device, dtype).items():
+                total[k] += v
+    root = tempfile.mkdtemp(prefix="chip_smoke_options_")
+    try:
+        for k, v in check_option_entry_points(root, device).items():
+            total[k] += v
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  options phase launches {total}; {card_line()}", flush=True)
+    if not total["fetch_corners"]:
+        print("  K6 did not launch on the v1_multiscale paths at full size "
+              "with these random weights (no rung's gate held); it is held "
+              "on a float frame at version 8 above", flush=True)
+    return total
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -1829,6 +2159,7 @@ def main() -> int:
         ckpt = os.path.join(work, "checkpoints")
         add(phase_trainer(keep_checkpoints=ckpt))
         phase_evaluation(ckpt)
+        add(phase_options())
     finally:
         shutil.rmtree(work, ignore_errors=True)
     missing = [name for name, n in launches.items() if n == 0]

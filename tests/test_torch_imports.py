@@ -94,3 +94,13 @@ def test_evaluation_modules_are_among_those_checked():
                  "cli.evaluate_depth", "cli.evaluate_pose"):
         assert f"{port.__name__}.{name}" in modules, name
     assert {"PIL", "matplotlib"} <= set(BLOCKED)
+
+
+def test_option_modules_are_among_those_checked():
+    """The modules of the training options (PoseCNN, the upstream decoder's
+    nearest upsample, the option-aware bundle and step) are imported,
+    JAX-free, above."""
+    modules = set(port_modules())
+    for name in ("models.pose_cnn", "models.depth_decoder", "ops.resize",
+                 "train.bundle", "train.step", "convert", "serve"):
+        assert f"{port.__name__}.{name}" in modules, name

@@ -151,15 +151,27 @@ def test_seeded_init_is_deterministic_and_leaves_global_rng():
                            c["encoder.encoder.conv1.weight"])
 
 
-@pytest.mark.parametrize("kw", [dict(compute_dtype="float32",
-                                     depth_decoder_variant="upstream"),
-                                dict(compute_dtype="float32",
-                                     pose_model_type="posecnn"),
-                                dict(compute_dtype="float32",
-                                     v1_multiscale=True)])
+@pytest.mark.parametrize("kw", [dict(pre_trained_generator=True),
+                                dict(adversarial_prior=True),
+                                dict(pre_trained_generator=True,
+                                     adversarial_prior=True)])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        ModelBundle.create(Options(height=H, width=W, **kw), device="cpu")
+    """Only the GAN prior's options are refused; the message names each
+    one that is on."""
+    with pytest.raises(NotImplementedError) as err:
+        ModelBundle.create(Options(height=H, width=W,
+                                   compute_dtype="float32", **kw),
+                           device="cpu")
+    assert all(name in str(err.value) for name in kw)
+
+
+def test_stereo_with_predictive_mask_is_refused():
+    """The mask has no channel for the stereo frame (the reference fails
+    to broadcast in its first step); the bundle names both options."""
+    with pytest.raises(ValueError, match="use_stereo and predictive_mask"):
+        ModelBundle.create(Options(height=H, width=W, compute_dtype="float32",
+                                   use_stereo=True, predictive_mask=True),
+                           device="cpu")
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 5, 7), (1, 2, 1, 2), (1, 1, 2, 1),

@@ -4,13 +4,15 @@ Same field names and defaults as ``unsupervised_pose_estimation_tpu/
 config.py::Options``, so a config written by either package loads in the
 other (``to_json`` / ``from_json``), and the same command line
 (``parse_options``, ``PRESETS``) gives the same options. The TPU knobs
-(``use_pallas_*``, ``pallas_*``) are accepted and ignored; ``mesh_*``
-other than one device makes the trainer raise. The exceptions are
-``use_pallas_warp_loss``, which picks the fused warp + loss kernels (K1/K2)
-over the warp and loss kernels (K5, K3/K4) as in the reference, and
-``pallas_warp_version``, which picks the warp's kernel ladder as in the
-reference. The port always runs its CUDA kernels on a CUDA device and
-their plain PyTorch versions on the CPU.
+``pallas_*_interpret`` are accepted and ignored; ``mesh_*`` other than one
+device makes the trainer raise. The kernel switches route as in the
+reference: ``use_pallas_warp_loss`` picks the fused warp + loss kernels
+(K1/K2) over the warp and loss kernels (K5, K3/K4), ``pallas_warp_version``
+the warp's kernel ladder, and ``use_pallas_warp=False`` /
+``use_pallas_loss=False`` send the warps / the losses to their plain
+PyTorch versions, either one turning the fused op off. Otherwise the port
+runs its CUDA kernels on a CUDA device and their plain PyTorch versions on
+the CPU.
 """
 
 from __future__ import annotations
@@ -122,9 +124,11 @@ class Options:
     synthetic_data: bool = False
     synthetic_rotation: bool = False
     debug_nans: bool = False
-    use_pallas_loss: bool = True        # ignored
+    use_pallas_loss: bool = True   # the loss kernels K3/K4 (and K1/K2);
+    # off: the plain SSIM + L1 and no fused op
     pallas_loss_interpret: bool = False  # ignored
-    use_pallas_warp: bool = True        # ignored
+    use_pallas_warp: bool = True   # the warp kernels (and K1/K2); off: the
+    # plain bilinear sample and no fused op
     pallas_warp_interpret: bool = False  # ignored
     pallas_warp_version: int = 8  # top rung of the warp ladder: 8 (and
     # above) K5, with K1/K2 when use_pallas_warp_loss; 1-5 the per-plane

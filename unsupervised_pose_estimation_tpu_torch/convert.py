@@ -60,37 +60,55 @@ def _resnet(sd, prefix, params, stats):
 
 
 def _depth(sd, prefix, params, stats):
+    """A fork tree (``deconv_*``, ``bn_*``) or an upstream one (neither)."""
     pre = prefix + ".decoder."
+    fork = "deconv_4" in params
+    convs, heads = (5, 15) if fork else (0, 10)
     for j, i in enumerate(range(4, -1, -1)):
-        sd[f"{pre}{j}.weight"] = _deconv(params[f"deconv_{i}"]["kernel"])
-        sd[f"{pre}{j}.bias"] = params[f"deconv_{i}"]["bias"]
+        if fork:
+            sd[f"{pre}{j}.weight"] = _deconv(params[f"deconv_{i}"]["kernel"])
+            sd[f"{pre}{j}.bias"] = params[f"deconv_{i}"]["bias"]
+            _bn(sd, f"{prefix}.bn.{i}", params[f"bn_{i}"], stats[f"bn_{i}"])
         for r in range(2):
             conv = params[f"upconv_{i}_{r}"]["conv3x3"]["conv"]
-            sd[f"{pre}{5 + 2 * j + r}.conv.conv.weight"] = _conv(conv["kernel"])
-            sd[f"{pre}{5 + 2 * j + r}.conv.conv.bias"] = conv["bias"]
-        _bn(sd, f"{prefix}.bn.{i}", params[f"bn_{i}"], stats[f"bn_{i}"])
+            k = convs + 2 * j + r
+            sd[f"{pre}{k}.conv.conv.weight"] = _conv(conv["kernel"])
+            sd[f"{pre}{k}.conv.conv.bias"] = conv["bias"]
     scales = sorted(int(k.split("_")[1]) for k in params
                     if k.startswith("dispconv_"))
     for j, s in enumerate(scales):
         conv = params[f"dispconv_{s}"]["conv"]
-        sd[f"{pre}{15 + j}.conv.weight"] = _conv(conv["kernel"])
-        sd[f"{pre}{15 + j}.conv.bias"] = conv["bias"]
+        sd[f"{pre}{heads + j}.conv.weight"] = _conv(conv["kernel"])
+        sd[f"{pre}{heads + j}.conv.bias"] = conv["bias"]
 
 
 def _pose(sd, prefix, params):
-    for j, name in enumerate(("squeeze", "pose_0", "pose_1", "pose_2")):
-        sd[f"{prefix}.net.{j}.weight"] = _conv(params[name]["kernel"])
-        sd[f"{prefix}.net.{j}.bias"] = params[name]["bias"]
+    """A PoseDecoder tree, or a PoseCNN tree (``conv_0-6``, ``pose_conv``)."""
+    if "pose_conv" in params:
+        names = [(f"net.{i}", f"conv_{i}") for i in range(7)]
+        names.append(("pose_conv", "pose_conv"))
+    else:
+        names = [(f"net.{j}", name) for j, name in enumerate(
+            ("squeeze", "pose_0", "pose_1", "pose_2"))]
+    for key, name in names:
+        sd[f"{prefix}.{key}.weight"] = _conv(params[name]["kernel"])
+        sd[f"{prefix}.{key}.bias"] = params[name]["bias"]
 
 
 def from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any]
              ) -> "OrderedDict[str, torch.Tensor]":
-    """Reference trees {'encoder', 'depth', 'pose_encoder', 'pose'} ->
-    a ModelBundle state_dict (float32 CPU tensors)."""
+    """Reference trees {'encoder', 'depth', and those of the run's options
+    among 'pose_encoder', 'pose' and 'predictive_mask'} -> a ModelBundle
+    state_dict (float32 CPU tensors)."""
     sd: Dict[str, Any] = OrderedDict()
     _resnet(sd, "encoder", params["encoder"], batch_stats["encoder"])
-    _depth(sd, "depth", params["depth"], batch_stats["depth"])
-    _resnet(sd, "pose_encoder", params["pose_encoder"],
-            batch_stats["pose_encoder"])
-    _pose(sd, "pose", params["pose"])
+    _depth(sd, "depth", params["depth"], batch_stats.get("depth", {}))
+    if "pose_encoder" in params:
+        _resnet(sd, "pose_encoder", params["pose_encoder"],
+                batch_stats["pose_encoder"])
+    if "pose" in params:
+        _pose(sd, "pose", params["pose"])
+    if "predictive_mask" in params:
+        _depth(sd, "predictive_mask", params["predictive_mask"],
+               batch_stats["predictive_mask"])
     return OrderedDict((k, torch.tensor(np.array(v))) for k, v in sd.items())

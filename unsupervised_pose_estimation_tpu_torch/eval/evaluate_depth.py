@@ -28,8 +28,8 @@ from ..data.pipeline import Loader
 from ..data.split import readlines, resolve_split_file
 from ..ops.geometry import disp_to_depth
 from ..train.bundle import ModelBundle
-from ..train.checkpoint import latest_step, load_pth_folder, \
-    restore_checkpoint
+from ..train.checkpoint import (import_depth_decoder, latest_step,
+                                load_pth_folder, restore_checkpoint)
 from ..train.loop import resolve_device
 from ..train.step import build_infer_step
 from .metrics import (batch_post_process_disparity, compute_depth_errors,
@@ -109,15 +109,29 @@ def load_eval_state(opt: Options, device="cuda",
     ``opt.load_weights_folder``: a checkpoint directory of this package (its
     latest step; parameters are float32 whatever dtype wrote it) or a
     folder of reference ``.pth`` files, of which ``models_to_load`` must
-    all be there. A ``.pth`` depth decoder of another variant than
-    ``opt.depth_decoder_variant`` raises ValueError."""
+    all be there. When a ``.pth`` depth decoder is of another variant than
+    ``opt.depth_decoder_variant`` (upstream monodepth2 or the fork's
+    deconv + BatchNorm), the bundle is built with the detected variant, as
+    the reference's ``load_eval_state`` does, so that no layer runs with
+    random weights."""
     folder = os.path.expanduser(opt.load_weights_folder or "")
     if not os.path.isdir(folder):
         raise FileNotFoundError(f"Cannot find folder {folder}")
+    pth = latest_step(folder) is None
+    depth_file = os.path.join(folder, "depth.pth")
+    depth_tree = None
+    if pth and "depth" in models_to_load and os.path.isfile(depth_file):
+        depth_tree = import_depth_decoder(depth_file)
+        variant = depth_tree["variant"]
+        if variant != opt.depth_decoder_variant:
+            print(f"-> depth.pth detected as '{variant}' decoder; building "
+                  f"that variant")
+            opt = dataclasses.replace(opt, depth_decoder_variant=variant)
     bundle = ModelBundle.create(opt, seed=opt.seed,
                                 device=resolve_device(device))
-    if latest_step(folder) is None:
-        load_pth_folder(bundle, folder, models_to_load, skip_missing=False)
+    if pth:
+        load_pth_folder(bundle, folder, models_to_load, skip_missing=False,
+                        depth_tree=depth_tree)
     else:
         restore_checkpoint(folder, bundle)
     return bundle.eval()

@@ -32,7 +32,15 @@ def predict_pose_sequence(opt: Options, bundle: ModelBundle,
                           filenames) -> np.ndarray:
     """-> (N, 4, 4) local source->target transforms of frames (0, 1) of each
     line, as the reference feeds them: [frame 1, frame 0] on the channels,
-    in batches of ``opt.batch_size`` pairs (the last one shorter)."""
+    in batches of ``opt.batch_size`` pairs (the last one shorter). Only a
+    separate ResNet pose network over pairs is evaluated, as in the
+    reference package."""
+    cfg = bundle.cfg
+    if cfg.pose_model_type != "separate_resnet" or cfg.num_pose_frames != 2:
+        raise ValueError(f"pose evaluation runs a separate_resnet pose "
+                         f"network over pairs; this one is "
+                         f"{cfg.pose_model_type} over "
+                         f"{cfg.pose_model_input}")
     ds = eval_dataset(opt, filenames, [0, 1])
     device = next(bundle.parameters()).device
     bundle.eval()

@@ -2,5 +2,6 @@
 state_dict layout)."""
 
 from .depth_decoder import DepthDecoder  # noqa: F401
+from .pose_cnn import PoseCNN  # noqa: F401
 from .pose_decoder import PoseDecoder  # noqa: F401
 from .resnet import ResnetEncoder  # noqa: F401

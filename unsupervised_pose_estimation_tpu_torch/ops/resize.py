@@ -5,7 +5,8 @@ is a separable weighted sum: one (in, out) weight matrix per resized axis,
 built from the method's kernel with half-pixel centres and, on downsampling,
 the kernel stretched by the scale (antialiasing). Building the same matrices
 and contracting with them reproduces it; ``F.interpolate`` has no lanczos3
-and does not antialias. Layouts are NHWC, as in the reference.
+and does not antialias. Layouts are NHWC, as in the reference, apart from
+``upsample2x_nearest``, which serves the networks and takes their NCHW.
 """
 
 from __future__ import annotations
@@ -65,6 +66,16 @@ def resize_bilinear(x, height: int, width: int):
     """Bilinear resize of NHWC ``x``, half-pixel centres (PyTorch's
     align_corners=False when upsampling)."""
     return resize(x, height, width, "bilinear")
+
+
+def upsample2x_nearest(x):
+    """2x nearest upsample of NCHW ``x`` (the upstream monodepth2 decoder's,
+    the reference's ``upsample2x_nearest`` on NHWC): a broadcast and a
+    reshape, so its backward is the sum over each 2x2 block, a reduction in
+    a fixed order (no scatter, no atomics)."""
+    b, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2).reshape(
+        b, c, 2 * h, 2 * w)
 
 
 def image_pyramid(x, num_scales: int):

@@ -21,9 +21,9 @@ import numpy as np
 import torch
 
 from .config import Options
+from .eval.evaluate_depth import load_eval_state
 from .ops.geometry import disp_to_depth
 from .train.bundle import ModelBundle
-from .train.checkpoint import load_weights
 from .train.loop import float32_setting, resolve_device
 from .train.step import build_infer_step
 
@@ -35,22 +35,21 @@ class InferenceEngine:
     def __init__(self, opt: Options, max_batch: int = 8, device="cuda",
                  bundle: Optional[ModelBundle] = None):
         """The weights: ``bundle``'s when given (for example loaded from
-        ``convert.from_jax``), else those of ``opt.load_weights_folder`` (a
-        checkpoint directory of this package, or a folder holding the
-        reference's ``encoder.pth`` and ``depth.pth``), else drawn from
-        ``opt.seed``."""
+        ``convert.from_jax``), else those of ``opt.load_weights_folder``
+        through ``eval.evaluate_depth.load_eval_state`` (a checkpoint
+        directory of this package, or a folder holding the reference's
+        ``encoder.pth`` and ``depth.pth``, whose decoder variant it
+        detects), else drawn from ``opt.seed``."""
         self.opt = opt
         self.max_batch = max_batch
         self.height, self.width = opt.height, opt.width
         self.device = resolve_device(device)
         print(float32_setting(opt))
-        if bundle is None:
+        if bundle is None and opt.load_weights_folder is not None:
+            bundle = load_eval_state(opt, self.device)
+        elif bundle is None:
             bundle = ModelBundle.create(opt, seed=opt.seed,
                                         device=self.device)
-            if opt.load_weights_folder is not None:
-                load_weights(bundle, opt.load_weights_folder,
-                             models_to_load=("encoder", "depth"),
-                             skip_missing=False)
         self.bundle = bundle
         self._infer = build_infer_step(self.bundle)
         self.calls = 0

@@ -11,8 +11,9 @@ needs JAX.
 
 The importers read reference-layout ``.pth`` files (the original trainer's
 ``encoder``, ``depth``, ``pose_encoder`` and ``pose`` files, and the
-torchvision ImageNet ResNets) into the port's modules, whose ``state_dict``
-already uses that layout.
+torchvision ImageNet ResNets; a ``pose`` file is a PoseCNN's under
+``pose_model_type="posecnn"``) into the port's modules, whose
+``state_dict`` already uses that layout.
 """
 
 from __future__ import annotations
@@ -135,10 +136,12 @@ def import_resnet_encoder(path: str) -> Dict[str, Any]:
 
 
 def import_depth_decoder(path: str) -> Dict[str, Any]:
-    """Reference DepthDecoder ``.pth`` -> {'state_dict', 'variant'}. A fork
-    decoder starts its ModuleList with bare transposed convs
-    (``decoder.0.weight``), the upstream one with a ConvBlock. The fork
-    never saved its BatchNorms, so they keep their values on load."""
+    """Reference DepthDecoder ``.pth`` -> {'state_dict', 'variant'}: the
+    layout of ``models.DepthDecoder`` of that variant. A fork decoder
+    starts its ModuleList with bare transposed convs (``decoder.0.weight``),
+    the upstream one with a ConvBlock (``decoder.0.conv.conv.weight``). The
+    fork never saved its BatchNorms, so they keep their values on load; the
+    upstream decoder has none."""
     sd = _load_pth(path)
     variant = "fork" if "decoder.0.weight" in sd else "upstream"
     return {"state_dict": sd, "variant": variant}
@@ -146,6 +149,12 @@ def import_depth_decoder(path: str) -> Dict[str, Any]:
 
 def import_pose_decoder(path: str) -> Dict[str, Any]:
     """Reference PoseDecoder ``.pth`` -> {'state_dict'}."""
+    return {"state_dict": _load_pth(path)}
+
+
+def import_pose_cnn(path: str) -> Dict[str, Any]:
+    """Reference PoseCNN ``.pth`` (``net.0-6``, ``pose_conv``) ->
+    {'state_dict'}."""
     return {"state_dict": _load_pth(path)}
 
 
@@ -209,12 +218,16 @@ def locate_imagenet_weights(num_layers: int = 18,
 
 def load_pth_folder(bundle: ModelBundle, folder: str,
                     models_to_load=("pose_encoder", "pose", "depth",
-                                    "encoder"), skip_missing: bool = True):
+                                    "encoder"), skip_missing: bool = True,
+                    depth_tree: Optional[dict] = None):
     """Load a folder of reference ``<name>.pth`` files into ``bundle``, as
     the reference trainer does for ``load_weights_folder``: a missing file
     is skipped with a message (raises FileNotFoundError unless
-    ``skip_missing``); a depth decoder of another variant than the run's
-    raises ValueError."""
+    ``skip_missing``), and so is a file of a network the run does not have
+    (``pose_encoder`` under a shared or PoseCNN pose network); a depth
+    decoder of another variant than the run's raises ValueError.
+    ``depth_tree`` is ``import_depth_decoder`` of the folder's ``depth.pth``
+    where the caller has read it already."""
     cfg = bundle.cfg
     for name in models_to_load:
         path = os.path.join(folder, f"{name}.pth")
@@ -223,12 +236,15 @@ def load_pth_folder(bundle: ModelBundle, folder: str,
                 raise FileNotFoundError(f"Cannot find {path}")
             print(f"Cannot find {path}; skipping")
             continue
+        module = getattr(bundle, name, None)
+        if module is None and name in ("pose_encoder", "pose"):
+            print(f"This run has no {name}; skipping {path}")
+            continue
         print(f"Loading {name} weights...")
-        module = getattr(bundle, name)
         if name in ("encoder", "pose_encoder"):
             load_into(module, import_resnet_encoder(path)["state_dict"])
         elif name == "depth":
-            tree = import_depth_decoder(path)
+            tree = depth_tree or import_depth_decoder(path)
             if tree["variant"] != cfg.depth_decoder_variant:
                 raise ValueError(
                     f"{path} is a '{tree['variant']}' decoder but the "
@@ -236,6 +252,8 @@ def load_pth_folder(bundle: ModelBundle, folder: str,
                     f"'{cfg.depth_decoder_variant}'; pass "
                     f"--depth_decoder_variant {tree['variant']}")
             load_into(module, tree["state_dict"], may_miss=("bn.",))
+        elif name == "pose" and cfg.pose_model_type == "posecnn":
+            load_into(module, import_pose_cnn(path)["state_dict"])
         elif name == "pose":
             load_into(module, import_pose_decoder(path)["state_dict"])
         else:

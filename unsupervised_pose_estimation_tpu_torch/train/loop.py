@@ -206,8 +206,9 @@ class Trainer:
     # ------------------------------------------------------------------
     def _init_encoders(self):
         """weights_init "pretrained": the torchvision ImageNet ResNet into
-        both encoders (conv1 averaged over the pose encoder's stacked
-        frames); "scratch" keeps the seeded random init."""
+        the depth encoder and, when the run has one, the pose encoder
+        (conv1 averaged over its stacked frames); "scratch" keeps the
+        seeded random init."""
         cfg = self.cfg
         if cfg.weights_init != "pretrained":
             print(f"weights_init={cfg.weights_init}: random encoder init")
@@ -215,10 +216,14 @@ class Trainer:
         path = ck.locate_imagenet_weights(cfg.num_layers,
                                           cfg.imagenet_weights)
         ck.load_into(self.bundle.encoder, ck.import_torchvision_resnet(path))
-        ck.load_into(self.bundle.pose_encoder, ck.import_torchvision_resnet(
-            path, cfg.num_pose_frames))
+        loaded = ["encoder"]
+        if self.bundle.pose_encoder is not None:
+            ck.load_into(self.bundle.pose_encoder,
+                         ck.import_torchvision_resnet(path,
+                                                      cfg.num_pose_frames))
+            loaded.append("pose_encoder")
         print(f"weights_init=pretrained: ImageNet resnet{cfg.num_layers} "
-              f"from {path} -> encoder, pose_encoder")
+              f"from {path} -> {', '.join(loaded)}")
 
     def _load_initial_weights(self):
         folder = self.cfg.load_weights_folder

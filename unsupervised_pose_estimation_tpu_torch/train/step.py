@@ -7,16 +7,23 @@ Port of ``unsupervised_pose_estimation_tpu/train/step.py``:
 ``train.bundle.check_supported`` admits. On a CUDA device the photometric
 terms run in the port's kernels. For every scale and source frame: with
 ``use_pallas_warp_loss`` (the default) the fused warp + loss (K1) and, in
-training, its backward (K2); without it, or when the warped images are
-returned, the warp (K5) followed by the SSIM + L1 loss (K3) and, in
-training, K3's backward (K4). The identity (automask) terms run K3 with no
-gradient. With ``pallas_warp_version`` 1-7 every warp goes instead through
-that version's ladder (``ops.kernels.grid_sample_fast``: the corner-fetch
-kernels K6-K8, or a plain gather) where the shape allows it, else through
-the plain ``ops.warp.grid_sample``; the loss is then always K3 and K4, as
-the reference's fused op needs version 8. The networks compute at
-``cfg.compute_dtype``; their disparities and poses, and everything after
-them, are float32.
+training, its backward (K2); without it, when the warped images are
+returned, or under ``v1_multiscale``, the warp followed by the SSIM + L1
+loss (K3) and, in training, K3's backward (K4). The identity (automask)
+terms run K3 with no gradient.
+
+The warp: a uint8 frame at ``pallas_warp_version`` 8 runs K5 at any shape.
+Below version 8, and for the float pyramid levels ``v1_multiscale`` warps,
+a warp whose size meets the reference's gate (W % 128 == 0, H % 8 == 0,
+H >= 16) goes through that version's ladder (``ops.kernels.
+grid_sample_fast``: the corner-fetch kernels K6-K8, or a plain gather),
+any other through the plain ``ops.warp.grid_sample``; the fused op needs
+version 8. ``use_pallas_warp=False`` sends every warp to the plain
+``grid_sample``, ``use_pallas_loss=False`` every loss to the plain
+``ops.losses.reprojection_loss_planar``, and either one turns the fused op
+off, as in the reference. The networks compute at ``cfg.compute_dtype``;
+their disparities, masks and poses, and everything after them, are
+float32.
 """
 
 from __future__ import annotations
@@ -62,20 +69,59 @@ def _check_float32(**tensors):
             raise TypeError(f"{name} is {t.dtype}; the loss takes float32")
 
 
-def predict_poses(bundle: ModelBundle, aug: Dict[int, torch.Tensor]):
-    """cam_T_cam (B, 4, 4) for every temporal source frame: both pairs are
-    stacked on the batch axis and go through the pose network in one
-    forward, so BatchNorm sees them together (as in the reference)."""
+def pose_parameters(bundle: ModelBundle, aug: Dict[int, torch.Tensor],
+                    features_by_frame=None):
+    """The pose network's output for every temporal source frame f: {f:
+    (axisangle (B, 1, 3), translation (B, 1, 3), invert)}, ``invert`` being
+    whether ``G.transformation_from_parameters`` inverts it.
+
+    Pairs (``pose_model_input="pairs"``) go through a ``separate_resnet`` or
+    ``posecnn`` network in one forward, stacked on the batch axis, so
+    BatchNorm sees them together (as in the reference), and through a
+    ``shared`` decoder one pair at a time as lists of the depth encoder's
+    features (``features_by_frame``); the pose of a frame before the target
+    is inverted. Under ``"all"`` every frame goes in at once, and no pose is
+    inverted."""
     cfg = bundle.cfg
     sources = list(cfg.frame_ids[1:])
+    pair = cfg.num_pose_frames == 2
+    if cfg.pose_model_type == "shared":
+        feats = features_by_frame
+        if pair:
+            out = {}
+            for f in sources:
+                aa, tt = bundle.pose([feats[f], feats[0]] if f < 0
+                                     else [feats[0], feats[f]])
+                out[f] = (aa[:, 0], tt[:, 0], f < 0)
+            return out
+        aa, tt = bundle.pose([feats[f] for f in cfg.frame_ids])
+    else:
+        # frames on the channel axis: each pair, earlier frame first,
+        # stacked on the batch axis, or every frame in frame_ids order
+        x = (torch.cat([torch.cat([aug[f], aug[0]] if f < 0
+                                  else [aug[0], aug[f]], 1)
+                        for f in sources], 0) if pair
+             else torch.cat([aug[f] for f in cfg.frame_ids], 1))
+        if cfg.pose_model_type == "separate_resnet":
+            aa, tt = bundle.pose([bundle.pose_encoder(x)])
+        else:
+            aa, tt = bundle.pose(x)
+    if not pair:
+        return {f: (aa[:, i:i + 1, 0], tt[:, i:i + 1, 0], False)
+                for i, f in enumerate(sources)}
     b = aug[0].shape[0]
-    pairs = [torch.cat([aug[f], aug[0]] if f < 0 else [aug[0], aug[f]], 1)
-             for f in sources]
-    feats = bundle.pose_encoder(torch.cat(pairs, 0))
-    aa, tt = bundle.pose([feats])
-    return {f: G.transformation_from_parameters(
-        aa[k * b:(k + 1) * b, 0, 0], tt[k * b:(k + 1) * b, 0, 0],
-        invert=(f < 0)) for k, f in enumerate(sources)}
+    return {f: (aa[k * b:(k + 1) * b, 0], tt[k * b:(k + 1) * b, 0], f < 0)
+            for k, f in enumerate(sources)}
+
+
+def predict_poses(bundle: ModelBundle, aug: Dict[int, torch.Tensor],
+                  features_by_frame=None):
+    """cam_T_cam (B, 4, 4) for every temporal source frame
+    (``pose_parameters``)."""
+    return {f: G.transformation_from_parameters(aa[:, 0], tt[:, 0],
+                                                invert=inv)
+            for f, (aa, tt, inv) in pose_parameters(
+                bundle, aug, features_by_frame).items()}
 
 
 def forward_and_loss(bundle: ModelBundle, batch, train: bool = False,
@@ -88,15 +134,18 @@ def forward_and_loss(bundle: ModelBundle, batch, train: bool = False,
       batch: {'color': uint8 (B, F, H, W, 3), 'K_norm': (B, 4, 4), and
         either 'color_aug': uint8 (B, F, H, W, 3) or 'aug_params': (B, 6)
         jitter factors that ``batch_augment`` turns into color_aug}, frames
-        in ``frame_ids`` order.
+        in ``frame_ids`` order, then the stereo frame with ``use_stereo``,
+        which also needs 'stereo_T': (B, 4, 4).
       train: BatchNorm on batch statistics (updating its running ones) and
         a loss that gradients flow from; else BatchNorm on its running
         statistics.
       with_images: also return the warped sources ('color_pred/f/s') and
         the automasks (evaluation only); the warp then runs unfused.
       generator: draws the 1e-5 tie-break noise of the automask.
-      noise: {scale: (B, H, W, S)} tie-break noise to use instead (tests
-        pass the reference package's draw).
+      noise: {scale: (B, h, w, S)} tie-break noise to use instead (tests
+        pass the reference package's draw), S being the number of source
+        frames and (h, w) the full size, or the scale's own under
+        ``v1_multiscale``.
 
     Returns (total_loss, (losses, outputs)); outputs['disp'] maps each
     scale to its (B, h, w, 1) disparity.
@@ -108,7 +157,7 @@ def forward_and_loss(bundle: ModelBundle, batch, train: bool = False,
     h, w = cfg.height, cfg.width
     if batch["color"].dtype != torch.uint8:
         raise TypeError("batch['color'] must be uint8")
-    frame_ids = list(cfg.frame_ids)
+    frame_ids = list(cfg.frame_ids) + (["s"] if cfg.use_stereo else [])
     sources = frame_ids[1:]
     f_index = {f: i for i, f in enumerate(frame_ids)}
     raw = {f: batch["color"][:, f_index[f]].contiguous() for f in frame_ids}
@@ -120,72 +169,135 @@ def forward_and_loss(bundle: ModelBundle, batch, train: bool = False,
         aug = {f: _nchw(_f32(batch["color_aug"][:, f_index[f]]))
                for f in frame_ids}
 
+    # pyramids: frame 0's for the smoothness; every frame's when the
+    # warps run at each scale's own size
+    multi = cfg.v1_multiscale
     n_levels = max(cfg.scales) + 1
-    pyr0 = image_pyramid(color[0], n_levels)
+    pyr = {0: image_pyramid(color[0], n_levels)}
+    if multi:
+        for f in sources:
+            pyr[f] = image_pyramid(color[f], n_levels)
     K_norm = batch["K_norm"].float()
-    Ks = G.scaled_intrinsics(K_norm, w, h, 0)
-    inv_Ks = G.invert_intrinsics(Ks)
+    Ks = [G.scaled_intrinsics(K_norm, w, h, s) for s in range(n_levels)]
+    inv_Ks = [G.invert_intrinsics(K) for K in Ks]
 
-    features = bundle.encoder(aug[0])
+    feats_by_frame = None
+    if cfg.pose_model_type == "shared":
+        # every frame through the depth encoder in one forward, so its
+        # BatchNorm sees them together (as in the reference)
+        b = aug[0].shape[0]
+        stacked = bundle.encoder(torch.cat([aug[f] for f in cfg.frame_ids],
+                                           0))
+        feats_by_frame = {f: [fm[i * b:(i + 1) * b] for fm in stacked]
+                          for i, f in enumerate(cfg.frame_ids)}
+        features = feats_by_frame[0]
+    else:
+        features = bundle.encoder(aug[0])
     disps = {s: _nhwc(d) for s, d in bundle.depth(features).items()}
-    poses = predict_poses(bundle, aug)
+    pose_params = (pose_parameters(bundle, aug, feats_by_frame)
+                   if cfg.use_pose_net else {})
+    masks = None
+    if cfg.predictive_mask:
+        masks = {s: _nhwc(m)
+                 for s, m in bundle.predictive_mask(features).items()}
     _check_float32(**{f"disp/{s}": d for s, d in disps.items()},
-                   **{f"pose/{f}": p for f, p in poses.items()})
+                   **{f"pose/{f}": p[0] for f, p in pose_params.items()})
+
+    loss_kernel = cfg.use_pallas_loss and not cfg.no_ssim
 
     def reproj_fn(pred_p, tgt_p):
-        if cfg.no_ssim:
-            return L.reprojection_loss_planar(pred_p, tgt_p, use_ssim=False)
-        return reproj_loss_op(pred_p, tgt_p)
+        if loss_kernel:
+            return reproj_loss_op(pred_p, tgt_p)
+        return L.reprojection_loss_planar(pred_p, tgt_p,
+                                          use_ssim=not cfg.no_ssim)
 
     version = cfg.pallas_warp_version
-    ladder = version <= 7
-    fused = cfg.use_pallas_warp_loss and not (with_images or cfg.no_ssim
-                                              or ladder)
+    fused = (cfg.use_pallas_warp_loss and cfg.use_pallas_warp and loss_kernel
+             and version >= 8 and not (with_images or multi))
 
     def warp_fn(src, pix):
-        if not ladder:
-            return warp_op(src, pix)[0]
-        if w % 128 == 0 and h % 8 == 0 and h >= 16:
-            return grid_sample_fast(src, pix, planar_out=True,
-                                    version=version, planar_grid=True)
-        return _nchw(grid_sample(src, pix) * INV255)
+        sh, sw = pix.shape[2], pix.shape[3]
+        if cfg.use_pallas_warp:
+            if version >= 8 and src.dtype == torch.uint8:
+                return warp_op(src, pix)[0]
+            if sw % 128 == 0 and sh % 8 == 0 and sh >= 16:
+                return grid_sample_fast(src, pix, planar_out=True,
+                                        version=version, planar_grid=True)
+        scale = INV255 if src.dtype == torch.uint8 else 1.0
+        return _nchw(grid_sample(src, pix) * scale)
 
-    target_p = _nchw(color[0])
-    identity = None
-    if not cfg.disable_automasking:
-        # input frames only: no gradient, as the reference's stop_gradient
+    def identity_losses(s):
+        """The identity (automask) losses of every source at scale s, from
+        the input frames only: no gradient, as the reference's
+        stop_gradient."""
         with torch.no_grad():
-            identity = torch.cat([reproj_fn(_nchw(color[f]), target_p)
+            if multi:
+                tgt = _nchw(pyr[0][s])
+                return torch.cat([reproj_fn(_nchw(pyr[f][s]), tgt)
                                   for f in sources], -1)
+            tgt = _nchw(color[0])
+            return torch.cat([reproj_fn(_nchw(color[f]), tgt)
+                              for f in sources], -1)
+
+    # without v1_multiscale every scale compares the same full-size frames
+    identity = (None if cfg.disable_automasking or multi
+                else identity_losses(0))
 
     losses: Dict[str, torch.Tensor] = {}
     outputs: Dict[str, object] = {"disp": disps}
     total_loss = 0.0
     for s in cfg.scales:
+        src_s = s if multi else 0
+        sh, sw = h >> src_s, w >> src_s
         disp_s = disps[s]
-        disp_full = resize_bilinear(disp_s, h, w)
+        disp_full = disp_s if multi else resize_bilinear(disp_s, h, w)
         _, depth = G.disp_to_depth(disp_full, cfg.min_depth, cfg.max_depth)
-        cam_points = G.backproject(depth, inv_Ks)
+        cam_points = G.backproject(depth, inv_Ks[src_s])
+        target_p = _nchw(pyr[0][s] if multi else color[0])
         reprojs = []
         for f in sources:
-            pix = G.project(cam_points, Ks, poses[f], h, w)
+            if f == "s":
+                T = batch["stereo_T"].float()
+            else:
+                aa, tt, inv = pose_params[f]
+                if cfg.pose_model_type == "posecnn":
+                    # SfMLearner's rescale by the mean inverse depth, with
+                    # the pair's invert rule under "all" too (as the
+                    # reference trainer)
+                    mean_inv_depth = torch.mean(1.0 / depth, dim=(1, 2, 3))
+                    tt = tt * mean_inv_depth[:, None, None]
+                    inv = f < 0
+                T = G.transformation_from_parameters(aa[:, 0], tt[:, 0],
+                                                     invert=inv)
+            pix = G.project(cam_points, Ks[src_s], T, sh, sw)
             if fused:
                 reprojs.append(warp_reproj_loss_op(raw[f], pix, target_p))
                 continue
-            warped_p = warp_fn(raw[f], pix)
+            warped_p = warp_fn(pyr[f][s] if multi else raw[f], pix)
             if with_images:
                 outputs[f"color_pred/{f}/{s}"] = _nhwc(warped_p)
             reprojs.append(reproj_fn(warped_p, target_p))
         reproj = torch.cat(reprojs, -1)
 
+        loss_s = 0.0
+        if masks is not None:
+            mask = masks[s] if multi else resize_bilinear(masks[s], h, w)
+            reproj = reproj * mask
+            # 0.2 * BCE(mask, 1); minimum/maximum differentiate as jnp.clip
+            clipped = torch.minimum(torch.maximum(
+                mask, mask.new_tensor(1e-7)), mask.new_tensor(1.0))
+            loss_s = 0.2 * torch.mean(-torch.log(clipped))
+        if multi and not cfg.disable_automasking:
+            identity = identity_losses(s)
         to_opt, automask = L.min_reprojection(
             reproj, identity, noise=None if noise is None else noise[s],
             generator=generator, avg_reprojection=cfg.avg_reprojection)
         if automask is not None and with_images:
             outputs[f"automask/{s}"] = automask
         min_loss = torch.mean(to_opt)
-        smooth = L.smooth_loss(L.normalized_disp(disp_s), pyr0[s])
-        loss_s = min_loss + cfg.disparity_smoothness * smooth / (2 ** s)
+        smooth = L.smooth_loss(L.normalized_disp(disp_s), pyr[0][s])
+        loss_s = loss_s + min_loss + cfg.disparity_smoothness * smooth / (
+            2 ** s)
         losses[f"min_loss/{s}"] = min_loss
         losses[f"loss/{s}"] = loss_s
         total_loss = total_loss + loss_s
