@@ -77,7 +77,19 @@ Phases, each timed on its own line:
    steps with a checkpoint at step 2 and a resumed step 3 that is
    bit-equal; ``cli.evaluate_depth`` and an ``InferenceEngine`` on a
    ``.pth`` folder whose ``depth.pth`` is an upstream decoder, each
-   building the detected variant.
+   building the detected variant;
+10. the GAN prior (``GAN_OPTIONS``: the frozen generator's silog term and
+   the PatchGAN discriminator's step): two training steps, each followed
+   by a disc step, on the card against the CPU's at a small size, in
+   float32 and in bfloat16 (as phase 5, with the generator's output, the
+   disc loss and the discriminator after its update); three training and
+   disc steps and one validation step at batch 12, 640x192, in bfloat16
+   and in float32, with wall ms of each step and disc step, peak memory
+   and launches (K1/K2/K3 8/8/2 a training step), the step and the disc
+   step repeated bit for bit under deterministic cuDNN; ``cli.train``
+   with the prior and a generator ``.pth`` written from seeded weights
+   for three steps, resumed from step 2 bit-equal (both Adams included);
+   ``cli.evaluate_depth`` on that run's checkpoint.
 
 It prints one JSON line of kernel records, then, as its last line, the
 device record. Any failure ends it with a non-zero exit code; without a
@@ -461,6 +473,10 @@ def to_device(noise, device):
 # largest gap of the losses plus this script's float32 bound (1e-4 of its
 # value); the whole gradient in L2 within BF16_MEAN times the gap's.
 BF16_MAX, BF16_MEAN, BF16_LOSS = 3.0, 2.0, 4.0
+# the GAN generator's float32 output (tanh) on the card against the CPU's:
+# the bound tests/test_torch_gan_models.py holds it to against the JAX
+# package's
+GAN_ATOL = 2e-4
 
 
 def within_bf16_gap(card, cpu, cpu_f32, what):
@@ -734,7 +750,7 @@ def check_train_against_cpu(device, version=8, steps=2, networks=True,
     if aug_err != 0.0:
         raise AssertionError("batch_augment on the card differs from the "
                              "CPU")
-    names = [n for n, _ in cpu.named_parameters()]
+    names = [n for n, _ in cpu.named_main_parameters()]
     label = f" {json.dumps(options)}" if options else ""
     for k in range(steps):
         card.load_state_dict(cpu.state_dict())
@@ -746,11 +762,12 @@ def check_train_against_cpu(device, version=8, steps=2, networks=True,
         rel = {n: abs(float(got[n]) - float(v)) / abs(float(v))
                for n, v in want.items()}
         worst = max((n for n in rel if n != "grad_norm"), key=rel.get)
-        card_grads = dict(card.named_parameters())
+        card_grads = dict(card.named_main_parameters())
         grad_l2 = math.sqrt(sum(
             float(((card_grads[n].grad.cpu() - p.grad).double() ** 2).sum())
-            for n, p in cpu.named_parameters()) / sum(
-            float((p.grad.double() ** 2).sum()) for p in cpu.parameters()))
+            for n, p in cpu.named_main_parameters()) / sum(
+            float((p.grad.double() ** 2).sum())
+            for p in cpu.main_parameters()))
         cpu_sd, card_sd = cpu.state_dict(), card.state_dict()
         diff = torch.cat([(card_sd[n].cpu() - cpu_sd[n]).abs().flatten()
                           for n in names])
@@ -770,9 +787,78 @@ def check_train_against_cpu(device, version=8, steps=2, networks=True,
                 and float(diff.max()) <= 2 * LR + 1e-6 and stats <= 2e-5):
             raise AssertionError(f"training step {k + 1} on the card "
                                  "disagrees with the CPU")
+        if opt.adversarial_prior:
+            check_disc_step_against_cpu(cpu, card, runs[0][1], runs[1][1],
+                                        batch, k + 1)
     if networks:
         check_networks_float64(cpu, device, batch_augment(
             batch["color"], batch["aug_params"]))
+
+
+def gan_inputs(batch):
+    """The un-augmented target frame of ``batch`` as float and its grey
+    (NCHW), the generator's input."""
+    from unsupervised_pose_estimation_tpu_torch.train.step import (
+        _f32, _grayscale, _nchw)
+
+    color0 = _f32(batch["color"][:, 0])
+    return color0, _nchw(_grayscale(color0))
+
+
+def check_disc_step_against_cpu(cpu, card, cpu_state, card_state, batch,
+                                step):
+    """After training step ``step`` of check_train_against_cpu: the
+    generator's output (tanh) on the card within GAN_ATOL of the CPU's;
+    then one discriminator step on each side from the same discriminator
+    and Adam moments, both on the CPU's real samples (the generator's
+    disparities, 1 / (1 + 1e5 t) of its output t: where t is near 0 that
+    multiplies rounding by up to 1e5, so cuDNN's and the CPU's own samples
+    are not compared through the discriminator); the disc loss within
+    1e-4 relative; after the update the discriminator within twice the
+    CPU's largest update plus 1e-6 (an element whose gradient is within
+    rounding of 0 can move either way; Adam's first update is lr times
+    the gradient's sign, a later one with b1 0.5 can exceed lr: the CPU's
+    largest was 1.054 lr at step 2)."""
+    import copy
+
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.train.step import (
+        build_disc_step, gan_prior)
+
+    device = next(card.parameters()).device
+    card_batch = {k: v.to(device) for k, v in batch.items()}
+    color0, gray = gan_inputs(batch)
+    with torch.no_grad():
+        tanh_err = float((card.generator(gray.to(device)).cpu()
+                          - cpu.generator(gray)).abs().max())
+    real = gan_prior(cpu, color0)
+    card.discriminator.load_state_dict(cpu.discriminator.state_dict())
+    # a copy: on the CPU load_state_dict would share the moment tensors
+    card_state.disc_optimizer.load_state_dict(
+        copy.deepcopy(cpu_state.disc_optimizer.state_dict()))
+    before = {n: v.clone() for n, v in cpu.discriminator.state_dict().items()}
+    want = build_disc_step(cpu)(cpu_state, batch, real=real)
+    got = build_disc_step(card)(card_state, card_batch,
+                                real=real.to(device))
+    rel = abs(float(got["disc_loss"]) - float(want["disc_loss"])) / abs(
+        float(want["disc_loss"]))
+    lr = cpu.cfg.discriminator_lr
+    cpu_sd, card_sd = (x.discriminator.state_dict() for x in (cpu, card))
+    moved = max(float((card_sd[n].cpu() - v).abs().max())
+                for n, v in cpu_sd.items())
+    update = max(float((v - before[n]).abs().max())
+                 for n, v in cpu_sd.items())
+    print(f"  disc step {step}, card vs CPU: generator output max abs "
+          f"error {tanh_err:.3e} (tol {GAN_ATOL:g}); disc_loss "
+          f"{float(want['disc_loss']):.6f}, relative error {rel:.3e} (tol "
+          f"1e-4); discriminator after its Adam {moved / lr:.3f} lr apart "
+          f"(tol 2x the CPU's largest update, {update / lr:.3f} lr)",
+          flush=True)
+    if not (tanh_err <= GAN_ATOL and rel <= 1e-4
+            and moved <= 2 * update + 1e-6):
+        raise AssertionError(f"disc step {step} on the card disagrees with "
+                             f"the CPU")
 
 
 def check_networks_float64(bundle, device, aug):
@@ -802,7 +888,8 @@ def check_networks_float64(bundle, device, aug):
             cot = [torch.randn(o.shape, generator=gen, dtype=torch.float64)
                    for o in outs]
         sum((o * c.to(dev)).sum() for o, c in zip(outs, cot)).backward()
-        grads.append({n: p.grad.cpu() for n, p in net.named_parameters()})
+        grads.append({n: p.grad.cpu()
+                      for n, p in net.named_main_parameters()})
         stats.append({n: t.cpu() for n, t in net.state_dict().items()
                       if "running" in n})
     worst = max((float((grads[1][n] - g).abs().max())
@@ -880,11 +967,13 @@ def check_bf16_train_against_cpu(device, options=None):
     gen = torch.Generator().manual_seed(5)
     batch = train_batch(gen, "cpu", b, h, w, cfg.use_stereo)
     noise = smoke_noise(gen, cfg, b, h, w)
-    init = {n: p.detach().clone() for n, p in nets[0].named_parameters()}
-    out = []
+    init = {n: p.detach().clone()
+            for n, p in nets[0].named_main_parameters()}
+    out, states = [], []
     for net in nets:
         dev = next(net.parameters()).device
         state = create_train_state(net)
+        states.append(state)
         losses = build_train_step(net)(
             state, {k: v.to(dev) for k, v in batch.items()},
             noise=to_device(noise, dev))
@@ -892,11 +981,12 @@ def check_bf16_train_against_cpu(device, options=None):
                    for t in st.values() if torch.is_tensor(t)]
         if any(t.dtype != torch.float32 for t in [
                 *net.parameters(), *moments,
-                *(p.grad for p in net.parameters())] if t.is_floating_point()):
+                *(p.grad for p in net.main_parameters())]
+               if t.is_floating_point()):
             raise AssertionError("a parameter, gradient or Adam moment of "
                                  "the bf16 step is not float32")
         out.append((losses, {n: p.grad.detach().cpu()
-                             for n, p in net.named_parameters()},
+                             for n, p in net.named_main_parameters()},
                     {n: t.detach().cpu()
                      for n, t in net.state_dict().items()}))
     (ref, g32, sd32), (want, g16, sd16), (got, gcard, sdcard) = out
@@ -922,6 +1012,57 @@ def check_bf16_train_against_cpu(device, options=None):
                       and stat_err <= BF16_MAX * stat_gap):
         raise AssertionError(f"the bf16 training step on the card disagrees "
                              f"with the CPU: {failed}")
+    if cfg.adversarial_prior:
+        check_bf16_disc_step(nets, states, batch)
+
+
+def check_bf16_disc_step(nets, states, batch):
+    """After check_bf16_train_against_cpu's step: the bfloat16 generator's
+    output on the card held to the CPU's bfloat16-against-float32 gap;
+    one discriminator step on each of (CPU float32, CPU bfloat16, card
+    bfloat16), all on the float32 CPU's real samples (as
+    check_disc_step_against_cpu): the disc loss by bf16_losses_close, the
+    share of the discriminator's parameters whose update has the other
+    sign than the CPU bfloat16's within BF16_MEAN times the share between
+    the CPU's bfloat16 and float32 updates."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.train.step import (
+        build_disc_step, gan_prior)
+
+    color0, gray = gan_inputs(batch)
+    with torch.no_grad():
+        tanh = [net.generator(gray.to(next(net.parameters()).device))
+                for net in nets]
+    within_bf16_gap(tanh[2], tanh[1], tanh[0], "generator output")
+    real = gan_prior(nets[0], color0)
+    init = {n: p.detach().clone()
+            for n, p in nets[0].discriminator.named_parameters()}
+    losses, after = [], []
+    for net, state in zip(nets, states):
+        dev = next(net.parameters()).device
+        net.discriminator.load_state_dict(init)
+        losses.append(build_disc_step(net)(
+            state, {k: v.to(dev) for k, v in batch.items()},
+            real=real.to(dev)))
+        after.append({n: p.detach().cpu()
+                      for n, p in net.discriminator.named_parameters()})
+    bf16_losses_close(losses[2], losses[1], losses[0], "disc step")
+    total = sum(t.numel() for t in init.values())
+
+    def flipped(a, b):
+        return sum(int((torch.sign(a[n] - init[n])
+                        != torch.sign(b[n] - init[n])).sum())
+                   for n in init) / total
+
+    signs = flipped(after[2], after[1]), flipped(after[1], after[0])
+    print(f"  bf16 discriminator updates, card vs CPU: {signs[0]:.4%} of "
+          f"its parameters moved the other way, against {signs[1]:.4%} "
+          f"between the CPU's bf16 and float32 (tol {BF16_MEAN}x)",
+          flush=True)
+    if not signs[0] <= BF16_MEAN * signs[1]:
+        raise AssertionError("the bf16 disc step on the card disagrees with "
+                             "the CPU")
 
 
 def check_step_repeats(bundle, batch):
@@ -945,8 +1086,8 @@ def check_step_repeats(bundle, batch):
             total, (losses, _) = forward_and_loss(bundle, batch, train=True,
                                                   noise=noise)
             total.backward()
-            runs.append((losses, {n: p.grad.clone()
-                                  for n, p in bundle.named_parameters()}))
+            runs.append((losses, {n: p.grad.clone() for n, p in
+                                  bundle.named_main_parameters()}))
     (l0, g0), (l1, g1) = runs
     differ = [k for k in l0 if not torch.equal(l0[k], l1[k])] + [
         n for n in g0 if not torch.equal(g0[n], g1[n])]
@@ -2112,6 +2253,244 @@ def phase_options(device="cuda"):
     return total
 
 
+# The GAN phase: the frozen generator's prior and the discriminator's
+# update on the default configuration.
+GAN_OPTIONS = dict(pre_trained_generator=True, adversarial_prior=True)
+
+
+def check_disc_step_repeats(bundle, batch):
+    """The disc step's loss and gradient twice from the same weights and
+    batch under the trainer's deterministic cuDNN (a zero-rate SGD in
+    place of its Adam, so that both start from the same discriminator):
+    the real samples, the loss and every gradient must be the same
+    bits."""
+    import types
+
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.train.loop import \
+        deterministic_cudnn
+    from unsupervised_pose_estimation_tpu_torch.train.step import (
+        build_disc_step, gan_prior)
+
+    disc = bundle.discriminator
+    state = types.SimpleNamespace(
+        disc_optimizer=torch.optim.SGD(disc.parameters(), lr=0.0))
+    step = build_disc_step(bundle)
+    runs = []
+    with deterministic_cudnn():
+        for _ in range(2):
+            real = gan_prior(bundle, gan_inputs(batch)[0])
+            loss = step(state, batch)["disc_loss"]
+            runs.append((real, loss, {n: p.grad.clone()
+                                      for n, p in disc.named_parameters()}))
+    (r0, l0, g0), (r1, l1, g1) = runs
+    differ = [n for n in g0 if not torch.equal(g0[n], g1[n])]
+    same = torch.equal(r0, r1) and torch.equal(l0, l1) and not differ
+    disc.zero_grad(set_to_none=True)
+    print(f"  the disc step twice under deterministic cuDNN: real samples, "
+          f"loss and {len(g0)} gradients bit-equal: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"a repeated disc step differs {differ[:5]}")
+
+
+def run_gan_steps(device, dtype):
+    """Three training steps, each followed by a disc step, and one
+    validation step of GAN_OPTIONS at B, H x W, the networks at ``dtype``:
+    wall ms of each step and disc step (host clock, synchronised), peak
+    memory, K1/K2/K3 launches asserted (8/8/2 a training step, 8/0/2 a
+    validation step, none in a disc step), finite losses; then the step
+    and the disc step repeated bit for bit; -> launches."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+    from unsupervised_pose_estimation_tpu_torch.train.bundle import \
+        ModelBundle
+    from unsupervised_pose_estimation_tpu_torch.train.state import \
+        create_train_state
+    from unsupervised_pose_estimation_tpu_torch.train.step import (
+        build_disc_step, build_eval_step, build_train_step)
+
+    bundle = ModelBundle.create(smoke_options(dtype=dtype, **GAN_OPTIONS),
+                                seed=0, device=device)
+    cfg = bundle.cfg
+    state = create_train_state(bundle)
+    step, disc_step = build_train_step(bundle), build_disc_step(bundle)
+    batch = train_batch(torch.Generator().manual_seed(25), device)
+    total = {k: 0 for k in KERNELS}
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    def timed(fn, *args, **kwargs):
+        start = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - start)
+
+    for k in range(4):
+        train = k < 3
+        K.reset_counts()
+        if train:
+            values, ms = timed(step, state, batch)
+        else:
+            values, ms = timed(lambda: build_eval_step(bundle)(
+                batch, generator=torch.Generator(device).manual_seed(26))[0])
+        launches = K.counts()
+        disc_ms = float("nan")
+        if train:
+            K.reset_counts()
+            disc, disc_ms = timed(disc_step, state, batch)
+            values.update(disc)
+            if any(K.counts().values()):
+                raise AssertionError(f"the disc step launched "
+                                     f"{K.counts()}")
+        values = {n: float(v) for n, v in values.items()}
+        bad = [n for n, v in values.items() if not math.isfinite(v)]
+        missing = [f"gan_loss/{s}" for s in cfg.scales
+                   if f"gan_loss/{s}" not in values]
+        want = option_launches(cfg, train)
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if device == "cuda" else float("nan"))
+        print(f"  GAN {dtype} {'train' if train else 'validation'} step: "
+              f"{ms:.1f} wall ms"
+              + (f", disc step {disc_ms:.1f} wall ms, disc_loss "
+                 f"{values['disc_loss']:.6f}" if train else "")
+              + f", peak {peak:.3f} GiB, loss {values['loss']:.6f}, "
+              f"gan_loss/0 {values['gan_loss/0']:.6f}, launches "
+              f"{ {n: v for n, v in launches.items() if v} }", flush=True)
+        if bad or missing or (device == "cuda" and launches != want):
+            raise AssertionError(f"GAN step: non-finite {bad}, missing "
+                                 f"{missing}, launches {launches} "
+                                 f"(expected {want})")
+        for n in total:
+            total[n] += launches[n]
+    check_step_repeats(bundle, batch)
+    check_disc_step_repeats(bundle, batch)
+    return total
+
+
+def check_gan_entry_points(root, device):
+    """cli.train with the prior at its defaults (bfloat16) at B, H x W for
+    3 steps, the generator read from a reference-layout .pth that this
+    writes from seeded weights, a checkpoint at step 2, and a Trainer
+    resumed from it whose step 3 (batch, losses) and final state
+    (parameters, statistics, both Adams' moments, the discriminator's
+    included) are bit-equal; then cli.evaluate_depth on the run's
+    checkpoint with the run's options and no generator file. -> kernel
+    launches of the training runs."""
+    import io
+
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.cli import evaluate_depth
+    from unsupervised_pose_estimation_tpu_torch.cli.train import main as train
+    from unsupervised_pose_estimation_tpu_torch.config import parse_options
+    from unsupervised_pose_estimation_tpu_torch.models import \
+        GeneratorResNet
+    from unsupervised_pose_estimation_tpu_torch.models.layers import \
+        init_weights
+    from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+    from unsupervised_pose_estimation_tpu_torch.train import loop
+
+    generator = GeneratorResNet(1, 9)
+    init_weights(generator, torch.Generator().manual_seed(27))
+    path = os.path.join(root, "G_AB.pth")
+    torch.save(generator.state_dict(), path)
+    gan_args = ["--pre_trained_generator", "--adversarial_prior"]
+    args = TRAIN_ARGS + gan_args + [
+        "--generator_weights", path, "--batch_size", str(B), "--height",
+        str(H), "--width", str(W), "--dataset", "synthetic_parallax",
+        "--steps_per_epoch", "3", "--ckpt_frequency", "2"]
+    straight, resumed = [], []
+    K.reset_counts()
+    undo = recording_steps(loop, straight)
+    try:
+        first = train(args + ["--log_dir", os.path.join(root, "a")],
+                      device=device)
+    finally:
+        undo()
+    ckpt = os.path.join(root, "a", "mdp", "models", "checkpoints")
+    resume_from = os.path.join(root, "resume_from")
+    os.makedirs(resume_from)
+    shutil.copy(os.path.join(ckpt, "2.pt"), resume_from)
+    undo = recording_steps(loop, resumed)
+    try:
+        second = loop.Trainer(parse_options(args + [
+            "--log_dir", os.path.join(root, "b"),
+            "--load_weights_folder", resume_from]), device=device)
+        second.train()
+    finally:
+        undo()
+    launches = K.counts()
+    if [s for s, *_ in straight] != [0, 1, 2] or \
+            [s for s, *_ in resumed] != [2]:
+        raise AssertionError("the GAN runs took other steps")
+    (_, batch_a, _, losses_a), (_, batch_b, _, losses_b) = (straight[2],
+                                                            resumed[0])
+    same = (all(torch.equal(batch_a[k], batch_b[k]) for k in batch_a)
+            and all(torch.equal(losses_a[k], losses_b[k]) for k in losses_a))
+    sa, sb = first.bundle.state_dict(), second.bundle.state_dict()
+    same_state = all(torch.equal(sa[k], sb[k]) for k in sa)
+    for name in ("optimizer", "disc_optimizer"):
+        oa = getattr(first.state, name).state_dict()["state"]
+        ob = getattr(second.state, name).state_dict()["state"]
+        same_state = same_state and oa.keys() == ob.keys() and all(
+            torch.equal(oa[i][k], ob[i][k]) for i in oa for k in oa[i])
+    loaded = all(torch.equal(sa[f"generator.{k}"], v.to(device))
+                 for k, v in generator.state_dict().items())
+    print(f"  cli.train {' '.join(gan_args)} --generator_weights <.pth> at "
+          f"batch {B}, {W}x{H}: 3 steps, resumed step 3 bit-equal (batch, "
+          f"losses) {same}, final parameters, statistics and both Adams' "
+          f"moments bit-equal {same_state}, generator as written "
+          f"{loaded}; launches "
+          f"{ {n: v for n, v in launches.items() if v} }", flush=True)
+    if not (same and same_state and loaded
+            and (device != "cuda" or launches["warp_reproj_loss_bwd"]
+                 == 8 * 4)):
+        raise AssertionError("the GAN run's resume is not bit-equal")
+
+    split_dir = write_split(root, H, W, B)
+    out = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        row = evaluate_depth.main(
+            ["--load_weights_folder", ckpt, "--height", str(H), "--width",
+             str(W), "--batch_size", str(B), "--dataset",
+             "synthetic_parallax", "--split_dir", split_dir, "--eval_split",
+             "smoke", "--eval_mono"] + gan_args, device=device)
+    ms = 1e3 * (time.perf_counter() - start)
+    print(f"  cli.evaluate_depth on the GAN run's checkpoint with its "
+          f"options: abs_rel {row['abs_rel']:.4f}, a1 {row['a1']:.4f} "
+          f"({B} items, {ms:.1f} wall ms)", flush=True)
+    if not all(math.isfinite(v) for v in row.values()):
+        raise AssertionError(f"non-finite metrics {row}")
+    return launches
+
+
+@phase("gan")
+def phase_gan(device="cuda"):
+    """The GAN prior (GAN_OPTIONS): two training and disc steps on the card
+    against the CPU at a small size, in float32 and in bfloat16; three
+    training and disc steps and one validation step at B, H x W in
+    bfloat16 and in float32; the entry points with the prior. -> launches
+    of the phase's runs."""
+    check_train_against_cpu(device, networks=False, options=GAN_OPTIONS)
+    check_bf16_train_against_cpu(device, options=GAN_OPTIONS)
+    total = {k: 0 for k in KERNELS}
+    for dtype in ("bfloat16", "float32"):
+        for k, v in run_gan_steps(device, dtype).items():
+            total[k] += v
+    root = tempfile.mkdtemp(prefix="chip_smoke_gan_")
+    try:
+        for k, v in check_gan_entry_points(root, device).items():
+            total[k] += v
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  GAN phase launches {total}; {card_line()}", flush=True)
+    return total
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -2160,6 +2539,7 @@ def main() -> int:
         add(phase_trainer(keep_checkpoints=ckpt))
         phase_evaluation(ckpt)
         add(phase_options())
+        add(phase_gan())
     finally:
         shutil.rmtree(work, ignore_errors=True)
     missing = [name for name, n in launches.items() if n == 0]

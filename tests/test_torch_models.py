@@ -151,18 +151,26 @@ def test_seeded_init_is_deterministic_and_leaves_global_rng():
                            c["encoder.encoder.conv1.weight"])
 
 
-@pytest.mark.parametrize("kw", [dict(pre_trained_generator=True),
-                                dict(adversarial_prior=True),
-                                dict(pre_trained_generator=True,
-                                     adversarial_prior=True)])
-def test_unported_options_raise(kw):
-    """Only the GAN prior's options are refused; the message names each
-    one that is on."""
-    with pytest.raises(NotImplementedError) as err:
+@pytest.mark.parametrize("kw, names", [
+    (dict(adversarial_prior=True),
+     ("adversarial_prior", "pre_trained_generator")),
+    (dict(pre_trained_generator=True, v1_multiscale=True),
+     ("pre_trained_generator", "v1_multiscale")),
+    (dict(pre_trained_generator=True, adversarial_prior=True,
+          v1_multiscale=True), ("pre_trained_generator", "v1_multiscale")),
+])
+def test_gan_option_refusals(kw, names):
+    """The GAN prior's combinations that cannot run raise ValueError naming
+    both options: the discriminator without the generator whose samples
+    it takes, and the prior under v1 multiscale, where the JAX step's
+    silog_loss of the full-size prior against a scale's own disparity
+    raises TypeError (incompatible shapes for broadcasting) while it
+    traces."""
+    with pytest.raises(ValueError) as err:
         ModelBundle.create(Options(height=H, width=W,
                                    compute_dtype="float32", **kw),
                            device="cpu")
-    assert all(name in str(err.value) for name in kw)
+    assert all(name in str(err.value) for name in names)
 
 
 def test_stereo_with_predictive_mask_is_refused():

@@ -20,6 +20,7 @@ the largest gradient of any leaf, its norm at rtol 1e-2 and the whole of it
 within 5e-2 in L2; the running statistics after the step at atol 2e-5.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -136,52 +137,89 @@ def jax_weights(kw, seed=0):
     return jb, v["params"], v["batch_stats"]
 
 
-def jax_reference(kw, grad=True):
+def gan_weights(jb, seed=0):
+    """The GAN prior's trees of JAX bundle ``jb``, drawn with numpy like
+    ``numpy_variables`` (after the other networks', from their own seeds):
+    (frozen {'pre_trained_generator': ...} or {}, disc_params or None)."""
+    x = jnp.zeros((1, H, W, 1), jnp.float32)
+    frozen, disc = {}, None
+    if jb.generator is not None:
+        frozen["pre_trained_generator"] = numpy_variables(
+            jb.generator.init, KEY, x, seed=seed + 100)["params"]
+    if jb.discriminator is not None:
+        disc = numpy_variables(jb.discriminator.init, KEY, x,
+                               seed=seed + 200)["params"]
+    return frozen, disc
+
+
+def jax_reference(kw, grad=True, float64=()):
     """The JAX step of options ``kw`` on ``make_batch``: {'params',
     'stats', 'batch', 'losses', and with ``grad`` 'grads' (a port
     state_dict of the gradients), else 'after' (the statistics after the
     forward, as a port state_dict)}. One compile: the value_and_grad, or
-    the forward alone."""
+    the forward alone. With the GAN prior, also 'frozen' and
+    'disc_params' (``gan_weights``). The networks named in ``float64``
+    compute in float64 on the JAX side (modules cloned with
+    ``compute_dtype=float64`` under ``jax.enable_x64``; the parameters and
+    the gradient stay float32), where the reference's own float32 rounding
+    would exceed the bounds."""
     jb, params, stats = jax_weights(kw)
+    frozen, disc = gan_weights(jb)
     batch = make_batch(jb.cfg)
+    jb = dataclasses.replace(jb, **{
+        name: getattr(jb, name).clone(compute_dtype=jnp.float64)
+        for name in float64})
 
-    def loss(p):
+    # the frozen generator is an argument: as a constant of the program,
+    # XLA would fold its convolutions while compiling
+    def loss(p, fz):
         total, (losses, _, new) = j_forward_and_loss(
-            jb, p, stats, {}, batch, KEY, train=True)
+            jb, p, stats, fz, batch, KEY, train=True)
         return total, (losses, new)
 
-    if grad:
-        (_, (losses, new)), g = jax.jit(jax.value_and_grad(
-            loss, has_aux=True))(params)
-    else:
-        _, (losses, new) = jax.jit(loss)(params)
-    host = jax.tree_util.tree_map(np.asarray, (losses, new))
-    out = dict(params=params, stats=stats, batch=batch,
+    with jax.enable_x64(True) if float64 else contextlib.nullcontext():
+        if grad:
+            (_, (losses, new)), g = jax.jit(jax.value_and_grad(
+                loss, has_aux=True))(params, frozen)
+        else:
+            _, (losses, new) = jax.jit(loss)(params, frozen)
+        host = jax.tree_util.tree_map(
+            lambda a: np.asarray(a, np.float32), (losses, new))
+    out = dict(params=params, stats=stats, frozen=frozen, disc_params=disc,
+               batch=batch,
                losses={k: float(v) for k, v in host[0].items()},
                after=from_jax(params, host[1]))
     if grad:
-        out["grads"] = from_jax(jax.tree_util.tree_map(np.asarray, g),
-                                host[1])
+        out["grads"] = from_jax(jax.tree_util.tree_map(
+            lambda a: np.asarray(a, np.float32), g), host[1])
     return out
 
 
 def port_step(kw, ref, grad=True):
     """The port's forward_and_loss (train mode) of options ``kw`` from the
-    reference's weights, batch and noise -> (losses, {name: gradient},
-    state_dict after)."""
+    reference's weights, batch and noise -> (losses, {name: gradient} of
+    the parameters the step trains, state_dict after)."""
     cfg = Options(**options(**kw))
-    bundle = ModelBundle.create(cfg, device="cpu")
-    bundle.load_state_dict(from_jax(ref["params"], ref["stats"]),
-                           strict=True)
+    bundle = port_bundle(cfg, ref)
     batch = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
     total, (losses, _) = forward_and_loss(bundle, batch, train=True,
                                           noise=jax_noise(cfg))
     grads = {}
     if grad:
         total.backward()
-        grads = {n: p.grad for n, p in bundle.named_parameters()}
+        grads = {n: p.grad for n, p in bundle.named_main_parameters()}
     return ({k: float(v.detach()) for k, v in losses.items()}, grads,
             bundle.state_dict())
+
+
+def port_bundle(cfg, ref):
+    """A port bundle of ``cfg`` on the CPU holding ``jax_reference``'s
+    weights."""
+    bundle = ModelBundle.create(cfg, device="cpu")
+    bundle.load_state_dict(from_jax(ref["params"], ref["stats"],
+                                    ref["frozen"], ref["disc_params"]),
+                           strict=True)
+    return bundle
 
 
 def compare_losses(got, want):
@@ -240,8 +278,8 @@ def records(log_dir):
 def resume_is_bit_exact(tmp_path, args):
     """cli.train with ``args`` for 3 steps, and a Trainer resumed from the
     checkpoint of step 2: the third step's losses, then every parameter,
-    BatchNorm statistic and Adam moment, bit-equal; -> the first
-    Trainer."""
+    BatchNorm statistic and Adam moment (the discriminator's Adam's too),
+    bit-equal; -> the first Trainer."""
     straight = main(TRAIN_ARGS + args + ["--log_dir", str(tmp_path / "a")],
                     device="cpu")
     ckpt_dir = tmp_path / "a" / "mdp" / "models" / "checkpoints"
@@ -269,12 +307,15 @@ def resume_is_bit_exact(tmp_path, args):
     assert sa.keys() == sb.keys()
     for key in sa:
         assert torch.equal(sa[key], sb[key]), key
-    oa = straight.state.optimizer.state_dict()["state"]
-    ob = resumed.state.optimizer.state_dict()["state"]
-    assert oa.keys() == ob.keys()
-    for i in oa:
-        for key in ("step", "exp_avg", "exp_avg_sq"):
-            assert torch.equal(oa[i][key], ob[i][key]), (i, key)
+    optimizers = ["optimizer"] + (["disc_optimizer"]
+                                  if straight.state.disc_optimizer else [])
+    for name in optimizers:
+        oa = getattr(straight.state, name).state_dict()["state"]
+        ob = getattr(resumed.state, name).state_dict()["state"]
+        assert oa.keys() == ob.keys() and oa, name
+        for i in oa:
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                assert torch.equal(oa[i][key], ob[i][key]), (name, i, key)
     return straight
 
 

@@ -2,19 +2,21 @@
 
 ``from_jax`` takes the reference's flax ``params`` and ``batch_stats`` trees
 (nested dicts keyed by model name; leaves as numpy arrays, or anything
-``np.asarray`` accepts) and returns the ``state_dict`` of a
+``np.asarray`` accepts), and with the GAN prior its ``frozen`` generator
+and ``disc_params``, and returns the ``state_dict`` of a
 ``train.bundle.ModelBundle``. It is the inverse of the ``.pth`` importers of
 ``unsupervised_pose_estimation_tpu/train/checkpoint.py`` (``_conv_w``,
-``_deconv_w``, ``_bn``, ``_resnet_tree`` and the decoder importers), kept
-here as its own copy. Both packages build their BatchNorms with eps 1e-5,
-so the running statistics carry over as they are.
+``_deconv_w``, ``_bn``, ``_resnet_tree``, the decoder importers and
+``import_generator``), kept here as its own copy. Both packages build
+their BatchNorms with eps 1e-5, so the running statistics carry over as
+they are.
 """
 
 from __future__ import annotations
 
 import re
 from collections import OrderedDict
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -95,11 +97,53 @@ def _pose(sd, prefix, params):
         sd[f"{prefix}.{key}.bias"] = params[name]["bias"]
 
 
-def from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any]
+def _tensors(sd):
+    return OrderedDict((k, torch.tensor(np.array(v))) for k, v in sd.items())
+
+
+def _conv_bias(sd, key, tree):
+    sd[key + ".weight"] = _conv(tree["kernel"])
+    sd[key + ".bias"] = tree["bias"]
+
+
+def generator_from_jax(params: Dict[str, Any]
+                       ) -> "OrderedDict[str, torch.Tensor]":
+    """A reference GeneratorResNet tree (``initial``, ``down_*``,
+    ``res_*``, ``up_*``, ``output``) -> a ``models.GeneratorResNet``
+    state_dict (the reference ``model`` Sequential's indices); the number
+    of residual blocks is the tree's."""
+    n_res = sum(1 for k in params if k.startswith("res_"))
+    sd: Dict[str, Any] = OrderedDict()
+    for i, name in ((1, "initial"), (4, "down_0"), (7, "down_1"),
+                    (11 + n_res, "up_0"), (15 + n_res, "up_1"),
+                    (19 + n_res, "output")):
+        _conv_bias(sd, f"model.{i}", params[name])
+    for r in range(n_res):
+        for j, conv in ((1, "conv1"), (5, "conv2")):
+            _conv_bias(sd, f"model.{10 + r}.block.{j}",
+                       params[f"res_{r}"][conv])
+    return _tensors(sd)
+
+
+def discriminator_from_jax(params: Dict[str, Any]
+                           ) -> "OrderedDict[str, torch.Tensor]":
+    """A reference PatchGANDiscriminator tree (``block_0-3``, ``final``) ->
+    a ``models.PatchGANDiscriminator`` state_dict."""
+    sd: Dict[str, Any] = OrderedDict()
+    for i, name in ((0, "block_0"), (2, "block_1"), (5, "block_2"),
+                    (8, "block_3"), (12, "final")):
+        _conv_bias(sd, f"model.{i}", params[name])
+    return _tensors(sd)
+
+
+def from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any],
+             frozen: Optional[Dict[str, Any]] = None,
+             disc_params: Optional[Dict[str, Any]] = None
              ) -> "OrderedDict[str, torch.Tensor]":
     """Reference trees {'encoder', 'depth', and those of the run's options
-    among 'pose_encoder', 'pose' and 'predictive_mask'} -> a ModelBundle
-    state_dict (float32 CPU tensors)."""
+    among 'pose_encoder', 'pose' and 'predictive_mask'}, with a GAN prior
+    its ``frozen`` tree ({'pre_trained_generator': ...}) and its
+    ``disc_params`` -> a ModelBundle state_dict (float32 CPU tensors)."""
     sd: Dict[str, Any] = OrderedDict()
     _resnet(sd, "encoder", params["encoder"], batch_stats["encoder"])
     _depth(sd, "depth", params["depth"], batch_stats.get("depth", {}))
@@ -111,4 +155,11 @@ def from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any]
     if "predictive_mask" in params:
         _depth(sd, "predictive_mask", params["predictive_mask"],
                batch_stats["predictive_mask"])
-    return OrderedDict((k, torch.tensor(np.array(v))) for k, v in sd.items())
+    sd = _tensors(sd)
+    if frozen and "pre_trained_generator" in frozen:
+        sd.update((f"generator.{k}", v) for k, v in generator_from_jax(
+            frozen["pre_trained_generator"]).items())
+    if disc_params is not None:
+        sd.update((f"discriminator.{k}", v)
+                  for k, v in discriminator_from_jax(disc_params).items())
+    return sd

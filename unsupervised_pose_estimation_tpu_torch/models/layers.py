@@ -1,5 +1,6 @@
 """Building blocks: reflect-padded 3x3 conv, conv + ELU, the fork's 2x
-transposed conv, and BatchNorm with flax's train-mode semantics.
+transposed conv, BatchNorm with flax's train-mode semantics, and the
+CycleGAN networks' instance normalisation.
 
 Port of ``unsupervised_pose_estimation_tpu/models/layers.py`` in its plain
 layout; the TPU's packed (space-to-depth) forms of the same parameters are
@@ -146,6 +147,20 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_((1.0 - m) * self.running_var + m * var)
             self.num_batches_tracked.add_(1)
         return cast(out, self.compute_dtype)
+
+
+def instance_norm(x, eps: float = 1e-5):
+    """Per-sample, per-channel normalisation of NCHW ``x`` over space, with
+    no affine and no running statistics (torch ``InstanceNorm2d``'s
+    defaults), as the reference's ``instance_norm``: the mean and the
+    biased variance are summed in float32 and rounded to ``x``'s dtype
+    (``jnp.mean`` and ``jnp.var`` of a bfloat16 array), then ``(x - mean) *
+    rsqrt(var + eps)`` is taken in that dtype. Plain tensor ops, whose
+    backward on the card sums in a fixed order."""
+    var, mean = torch.var_mean(widen(x), dim=(2, 3), keepdim=True,
+                               unbiased=False)
+    mean, var = mean.to(x.dtype), var.to(x.dtype)
+    return (x - mean) * torch.rsqrt(var + eps)
 
 
 class Deconv2x(nn.ConvTranspose2d):

@@ -21,6 +21,17 @@ def disp_to_depth(disp, min_depth: float, max_depth: float):
     return scaled_disp, 1.0 / scaled_disp
 
 
+def depth_to_disp(depth, min_disp: float = 0.00001,
+                  max_disp: float = 1.000001):
+    """The GAN prior's inverse of ``disp_to_depth``: a normalised depth in
+    [0, 1] (the generator's tanh output, negative where it is below 0) ->
+    (scaled_depth, disp) in [1/max_disp, 1/min_disp] and its inverse."""
+    min_depth = 1.0 / max_disp
+    max_depth = 1.0 / min_disp
+    scaled_depth = min_depth + (max_depth - min_depth) * depth
+    return scaled_depth, 1.0 / scaled_depth
+
+
 def rot_from_axisangle(vec):
     """Axis-angle (B, 3) -> rotation as (B, 4, 4), Rodrigues with the
     reference's 1e-7 guard on the angle."""

@@ -1,5 +1,5 @@
-"""Loss primitives: SSIM, photometric reprojection, edge-aware smoothness and
-min-reprojection automasking.
+"""Loss primitives: SSIM, photometric reprojection, edge-aware smoothness,
+min-reprojection automasking and the GAN prior's log losses.
 
 Port of ``unsupervised_pose_estimation_tpu/ops/losses.py`` (the terms the
 validation step uses). Layouts are the reference's: planar (N, C, H, W)
@@ -101,3 +101,30 @@ def min_reprojection(reproj, identity_reproj, noise=None, generator=None,
     idxs = torch.argmin(combined, dim=-1)
     automask = (idxs > identity_reproj.shape[-1] - 1).to(reproj.dtype)
     return to_optimise, automask
+
+
+def silog_loss(fake, real):
+    """Scale-invariant log loss of a prediction ``real`` against the
+    pseudo-disparity prior ``fake`` (same shape), a scalar: pixels where
+    either is <= 0 are set to 1 in both (a log difference of 0), N counts
+    the pixels where ``real`` > 0, clamped at 1, and the loss is
+    sqrt(sum(d^2) / N - (sum(d) / N)^2) of d = log(real) - log(fake)."""
+    n = torch.clamp((real > 0).to(real.dtype).sum(), min=1.0)
+    invalid = (real <= 0) | (fake <= 0)
+    one = torch.ones((), dtype=real.dtype, device=real.device)
+    d = (torch.log(torch.where(invalid, one, real))
+         - torch.log(torch.where(invalid, one, fake)))
+    return torch.sqrt(torch.sum(d * d) / n - (torch.sum(d) / n) ** 2)
+
+
+def rmse_log_loss(fake, real, eps: float = 1e-8):
+    """Log-RMSE over the pixels where ``real`` < 1 (N clamped at 1), a
+    scalar, with ``fake`` offset by ``eps`` and both floored at ``eps``
+    inside the logs."""
+    mask = real < 1.0
+    n = torch.clamp(mask.to(real.dtype).sum(), min=1.0)
+    fake = fake + eps
+    d = torch.where(mask, torch.log(torch.clamp(real, min=eps))
+                    - torch.log(torch.clamp(fake, min=eps)),
+                    torch.zeros((), dtype=real.dtype, device=real.device))
+    return torch.sqrt(torch.sum(d * d) / n)

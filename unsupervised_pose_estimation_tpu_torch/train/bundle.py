@@ -14,9 +14,17 @@ with float32 parameters, disparities and poses:
   ``pose_model_input="all"``, else a pair);
 - ``predictive_mask``, with ``cfg.predictive_mask``: a fork decoder with one
   output per source frame, whatever ``depth_decoder_variant`` says (the
-  reference builds it with no variant).
+  reference builds it with no variant);
+- ``generator``, with ``cfg.pre_trained_generator``: the GAN prior's frozen
+  CycleGAN ``GeneratorResNet`` (one channel, 9 residual blocks), whose
+  parameters do not require gradients;
+- ``discriminator``, with ``cfg.adversarial_prior``: the
+  ``PatchGANDiscriminator``, which its own Adam trains
+  (``train.step.build_disc_step``).
 
-A module the options do not use is None. Unlike the reference, parameters
+A module the options do not use is None. ``main_parameters()`` are the
+parameters the training step's Adam updates: every network's but the
+generator's and the discriminator's. Unlike the reference, parameters
 and BatchNorm statistics live in the modules; ``state_dict()`` keys are the
 module names above over the reference ``.pth`` layout
 (``convert.from_jax`` maps the reference package's trees onto them).
@@ -30,22 +38,29 @@ import torch
 from torch import nn
 
 from ..config import Options
-from ..models import DepthDecoder, PoseCNN, PoseDecoder, ResnetEncoder
+from ..models import (DepthDecoder, GeneratorResNet, PatchGANDiscriminator,
+                      PoseCNN, PoseDecoder, ResnetEncoder)
 from ..models.layers import init_weights
 
 POSE_MODEL_TYPES = ("separate_resnet", "shared", "posecnn")
+# the networks that the training step's Adam does not update
+GAN_MODULES = ("generator", "discriminator")
 
 
 def check_supported(cfg: Options) -> None:
-    """Raise NotImplementedError for options the port does not run yet,
-    and ValueError for options that cannot run together."""
-    unsupported = {
-        "pre_trained_generator": cfg.pre_trained_generator,
-        "adversarial_prior": cfg.adversarial_prior,
-    }
-    hit = [name for name, on in unsupported.items() if on]
-    if hit:
-        raise NotImplementedError(f"not ported yet: {', '.join(hit)}")
+    """Raise ValueError for options that cannot run together."""
+    if cfg.adversarial_prior and not cfg.pre_trained_generator:
+        raise ValueError("adversarial_prior requires pre_trained_generator: "
+                         "the discriminator's real samples are the "
+                         "generator's")
+    if cfg.pre_trained_generator and cfg.v1_multiscale and \
+            any(s > 0 for s in cfg.scales):
+        # the prior is full size, and v1 multiscale compares it with each
+        # scale's own disparity: the reference's silog_loss fails to
+        # broadcast in the first step
+        raise ValueError("pre_trained_generator and v1_multiscale cannot be "
+                         "combined: the prior is full size and the "
+                         "disparities of scales above 0 are not")
     if cfg.pose_model_type not in POSE_MODEL_TYPES:
         raise ValueError(f"pose_model_type must be one of "
                          f"{POSE_MODEL_TYPES}, got {cfg.pose_model_type!r}")
@@ -81,6 +96,7 @@ class ModelBundle(nn.Module):
                                   compute_dtype=dt,
                                   variant=cfg.depth_decoder_variant)
         self.pose_encoder = self.pose = self.predictive_mask = None
+        self.generator = self.discriminator = None
         kind = cfg.pose_model_type
         if cfg.use_pose_net and kind == "separate_resnet":
             self.pose_encoder = ResnetEncoder(
@@ -102,13 +118,29 @@ class ModelBundle(nn.Module):
             self.predictive_mask = DepthDecoder(
                 self.encoder.num_ch_enc, tuple(cfg.scales),
                 num_output_channels=len(cfg.frame_ids) - 1, compute_dtype=dt)
+        if cfg.pre_trained_generator:
+            self.generator = GeneratorResNet(1, 9, compute_dtype=dt)
+            self.generator.requires_grad_(False)
+        if cfg.adversarial_prior:
+            self.discriminator = PatchGANDiscriminator(compute_dtype=dt)
+
+    def named_main_parameters(self):
+        """(name, parameter) of the parameters the training step's Adam
+        updates, in registration order: those of every network but
+        ``GAN_MODULES``."""
+        return [(n, p) for n, p in self.named_parameters()
+                if n.split(".", 1)[0] not in GAN_MODULES]
+
+    def main_parameters(self):
+        return [p for _, p in self.named_main_parameters()]
 
     @classmethod
     def create(cls, cfg: Options, seed: int = 0,
                device="cuda") -> "ModelBundle":
         """Build on ``device`` with weights drawn from a generator seeded
         with ``seed`` (the global RNG is not touched): the ResNets first,
-        then the decoders, each in a fixed order."""
+        then the decoders, then the GAN prior's generator and
+        discriminator, each in a fixed order."""
         with torch.device("meta"):
             bundle = cls(cfg)
         bundle = bundle.to_empty(device="cpu")
@@ -116,7 +148,7 @@ class ModelBundle(nn.Module):
         for name in ("encoder", "pose_encoder"):
             if getattr(bundle, name) is not None:
                 init_weights(getattr(bundle, name), gen, fan_out_convs=True)
-        for name in ("depth", "pose", "predictive_mask"):
+        for name in ("depth", "pose", "predictive_mask", *GAN_MODULES):
             if getattr(bundle, name) is not None:
                 init_weights(getattr(bundle, name), gen)
         return bundle.to(device).eval()

@@ -2,18 +2,21 @@
 
 Port of ``unsupervised_pose_estimation_tpu/train/checkpoint.py``. A
 checkpoint is one ``torch.save`` file, ``<directory>/<step>.pt``, holding
-the bundle's ``state_dict`` (parameters and BatchNorm statistics), the Adam
-``state_dict`` and the step; ``opt.json`` beside it holds the options. Each
-file is written to a temporary name and published with ``os.replace``, so
-a reader sees a whole checkpoint or none, and the ``keep`` newest are kept.
+the bundle's ``state_dict`` (parameters and BatchNorm statistics, the GAN
+prior's generator and discriminator included), the Adam ``state_dict``,
+with ``adversarial_prior`` the discriminator Adam's, and the step;
+``opt.json`` beside it holds the options. Each file is written to a
+temporary name and published with ``os.replace``, so a reader sees a whole
+checkpoint or none, and the ``keep`` newest are kept.
 An orbax directory written by the reference package is refused: reading it
 needs JAX.
 
 The importers read reference-layout ``.pth`` files (the original trainer's
 ``encoder``, ``depth``, ``pose_encoder`` and ``pose`` files, and the
 torchvision ImageNet ResNets; a ``pose`` file is a PoseCNN's under
-``pose_model_type="posecnn"``) into the port's modules, whose
-``state_dict`` already uses that layout.
+``pose_model_type="posecnn"``, and the GAN prior's frozen CycleGAN
+generator) into the port's modules, whose ``state_dict`` already uses
+that layout.
 """
 
 from __future__ import annotations
@@ -69,8 +72,11 @@ def save_checkpoint(directory: str, bundle: ModelBundle, state: TrainState,
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"{state.step}.pt")
     tmp = f"{path}.tmp.{os.getpid()}"
-    torch.save({"step": state.step, "bundle": bundle.state_dict(),
-                "optimizer": state.optimizer.state_dict()}, tmp)
+    saved = {"step": state.step, "bundle": bundle.state_dict(),
+             "optimizer": state.optimizer.state_dict()}
+    if state.disc_optimizer is not None:
+        saved["disc_optimizer"] = state.disc_optimizer.state_dict()
+    torch.save(saved, tmp)
     os.replace(tmp, path)
     if cfg is not None:
         tmp = os.path.join(directory, f"opt.json.tmp.{os.getpid()}")
@@ -86,8 +92,12 @@ def restore_checkpoint(directory: str, bundle: ModelBundle,
                        state: Optional[TrainState] = None,
                        step: Optional[int] = None) -> Optional[TrainState]:
     """Load the checkpoint of ``step`` (the latest if None) into ``bundle``
-    and, when ``state`` is given, ``state.optimizer`` in place; -> ``state``
-    at the saved step (None without one)."""
+    and, when ``state`` is given, ``state.optimizer`` (and
+    ``state.disc_optimizer``) in place; -> ``state`` at the saved step
+    (None without one). The bundle must have the checkpoint's networks: a
+    GAN prior's checkpoint restores only into a bundle built with its
+    ``pre_trained_generator`` and ``adversarial_prior``, as in the
+    reference package."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -95,12 +105,29 @@ def restore_checkpoint(directory: str, bundle: ModelBundle,
     # device, and keeps Adam's step counts on the host
     saved = torch.load(os.path.join(directory, f"{step}.pt"),
                        map_location="cpu", weights_only=True)
+    _check_gan_networks(bundle, saved["bundle"])
     bundle.load_state_dict(saved["bundle"])
     if state is None:
         return None
     state.optimizer.load_state_dict(saved["optimizer"])
+    if state.disc_optimizer is not None:
+        state.disc_optimizer.load_state_dict(saved["disc_optimizer"])
     state.step = int(saved["step"])
     return state
+
+
+def _check_gan_networks(bundle: ModelBundle, saved: Dict[str, Any]):
+    """A checkpoint and a bundle that differ in the GAN prior's networks
+    -> ValueError naming the option that builds the missing one."""
+    for name, option in (("generator", "pre_trained_generator"),
+                         ("discriminator", "adversarial_prior")):
+        in_file = any(k.startswith(name + ".") for k in saved)
+        in_bundle = getattr(bundle, name) is not None
+        if in_file != in_bundle:
+            raise ValueError(
+                f"the checkpoint {'holds' if in_file else 'has no'} a GAN "
+                f"{name} and the run {'has none' if in_file else 'has one'}:"
+                f" restore it with{'' if in_file else 'out'} {option}")
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +183,29 @@ def import_pose_cnn(path: str) -> Dict[str, Any]:
     """Reference PoseCNN ``.pth`` (``net.0-6``, ``pose_conv``) ->
     {'state_dict'}."""
     return {"state_dict": _load_pth(path)}
+
+
+def import_generator(path: str) -> Dict[str, Any]:
+    """Reference CycleGAN generator ``.pth`` (a ``model`` Sequential) ->
+    {'state_dict', 'num_residual_blocks'}: the layout of
+    ``models.GeneratorResNet``, whose residual blocks are counted from the
+    file's keys (those of each block's first conv), as the reference package
+    counts them."""
+    sd = _load_pth(path)
+    n_res = sum(1 for k in sd if k.endswith(".block.1.weight"))
+    return {"state_dict": sd, "num_residual_blocks": n_res}
+
+
+def load_generator(bundle: ModelBundle, path: str):
+    """``import_generator`` of ``path`` into ``bundle.generator``; a file
+    with another number of residual blocks than the run's 9 is refused."""
+    tree = import_generator(path)
+    want = bundle.generator.num_residual_blocks
+    if tree["num_residual_blocks"] != want:
+        raise ValueError(f"{path} holds a generator of "
+                         f"{tree['num_residual_blocks']} residual blocks; "
+                         f"the run's has {want}")
+    load_into(bundle.generator, tree["state_dict"])
 
 
 def import_torchvision_resnet(path_or_sd, num_input_images: int = 1

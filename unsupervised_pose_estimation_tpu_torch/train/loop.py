@@ -8,7 +8,10 @@ and the Loader's shuffle and item draws from the seed, the epoch and the
 index. So a run resumed from a checkpoint at step N replays the batches and
 the noise of an uninterrupted run from step N on; and ``train()`` runs
 cuDNN's deterministic algorithms (``deterministic_cudnn``), so that on the
-card it also computes the same steps, bit for bit.
+card it also computes the same steps, bit for bit. With
+``adversarial_prior`` every training step is followed by one
+discriminator update on the same batch (``build_disc_step``), whose Adam
+moments the checkpoints carry too.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ from . import checkpoint as ck
 from .bundle import ModelBundle
 from .logging import MetricLogger, Profiler
 from .state import create_train_state
-from .step import build_eval_step, build_train_step, noise_generator
+from .step import (build_disc_step, build_eval_step, build_train_step,
+                   noise_generator)
 
 _REPO_SPLITS = os.path.join(os.path.dirname(__file__), "..", "..", "splits")
 
@@ -178,10 +182,13 @@ class Trainer:
         self.state = create_train_state(self.bundle, self.steps_per_epoch)
         self._init_encoders()
         self._load_initial_weights()
+        self._load_generator()
 
         self.train_step = build_train_step(self.bundle)
         self.eval_step = build_eval_step(self.bundle,
                                          with_images=cfg.log_images)
+        self.disc_step = (build_disc_step(self.bundle)
+                          if cfg.adversarial_prior else None)
 
         self.logger = MetricLogger(
             cfg.log_dir, cfg.model_name, use_wandb=cfg.wandb,
@@ -234,6 +241,20 @@ class Trainer:
         if kind == "checkpoint":
             print(f"restored checkpoint from {folder} "
                   f"(step {self.state.step})")
+
+    def _load_generator(self):
+        """The GAN prior's generator from ``generator_weights``, after any
+        restore (as the reference trainer); without the file it keeps its
+        seeded random weights."""
+        cfg = self.cfg
+        if not cfg.pre_trained_generator:
+            return
+        if cfg.generator_weights:
+            ck.load_generator(self.bundle, cfg.generator_weights)
+            print(f"GAN prior: generator from {cfg.generator_weights}")
+        else:
+            print("GAN prior: no --generator_weights; the generator keeps "
+                  "its seeded random weights unless a checkpoint set them")
 
     def _save_opts(self):
         models_dir = os.path.join(self.log_path, "models")
@@ -288,6 +309,9 @@ class Trainer:
             t0 = time.time()
             self.profiler.maybe_start(self.step)
             losses = self.train_step(self.state, batch)
+            if self.disc_step is not None:
+                # one discriminator update per batch, after the step
+                losses = {**losses, **self.disc_step(self.state, batch)}
 
             if batch_idx % cfg.log_frequency == 0:
                 loss = float(losses["loss"])  # syncs only when logging

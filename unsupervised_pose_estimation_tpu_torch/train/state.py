@@ -6,14 +6,15 @@ is one pytree that the jitted step replaces; here the parameters and
 BatchNorm statistics live in the bundle's modules (the step function holds
 the bundle) and the Adam moments in the optimizer, which the step updates
 in place, and ``TrainState`` holds the optimizer with the step counter
-that the schedule and the automask noise read.
+that the schedule and the automask noise read, and with
+``adversarial_prior`` the discriminator's own Adam.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import torch
 
@@ -47,19 +48,35 @@ def make_optimizer(params: Iterable[torch.nn.Parameter],
                             eps=1e-8)
 
 
+def make_disc_optimizer(params: Iterable[torch.nn.Parameter],
+                        cfg: Options) -> torch.optim.Adam:
+    """The discriminator's Adam: rate ``cfg.discriminator_lr``, betas
+    (``cfg.b1``, ``cfg.b2``), eps 1e-8, no schedule."""
+    return torch.optim.Adam(params, lr=cfg.discriminator_lr,
+                            betas=(cfg.b1, cfg.b2), eps=1e-8)
+
+
 @dataclasses.dataclass
 class TrainState:
     """``step`` counts optimizer updates; ``schedule(step)`` is the rate of
-    the next one."""
+    the next one. ``disc_optimizer`` is the discriminator's Adam, or
+    None without one."""
 
     step: int
     optimizer: torch.optim.Optimizer
     schedule: Schedule
+    disc_optimizer: Optional[torch.optim.Optimizer] = None
 
 
 def create_train_state(bundle: ModelBundle,
                        steps_per_epoch: int = 1) -> TrainState:
-    """A fresh state at step 0 over every parameter of ``bundle``."""
+    """A fresh state at step 0: Adam over ``bundle.main_parameters()``
+    (the reference's ``params``: the frozen generator and the
+    discriminator are not in it) and, with a discriminator, its own
+    Adam."""
     schedule = lr_schedule(bundle.cfg, steps_per_epoch)
-    optimizer = make_optimizer(bundle.parameters(), schedule(0))
-    return TrainState(step=0, optimizer=optimizer, schedule=schedule)
+    optimizer = make_optimizer(bundle.main_parameters(), schedule(0))
+    disc = bundle.discriminator
+    return TrainState(step=0, optimizer=optimizer, schedule=schedule,
+                      disc_optimizer=None if disc is None else
+                      make_disc_optimizer(disc.parameters(), bundle.cfg))

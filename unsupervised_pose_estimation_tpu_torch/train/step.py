@@ -24,6 +24,16 @@ version 8. ``use_pallas_warp=False`` sends every warp to the plain
 off, as in the reference. The networks compute at ``cfg.compute_dtype``;
 their disparities, masks and poses, and everything after them, are
 float32.
+
+With ``pre_trained_generator`` the frozen GAN generator's disparity of the
+target's grey frame is a prior that each scale's disparity is held to by
+the scale-invariant log loss (``gan_loss/{s}``; the total gains their sum
+over the number of scales times 0.002); with ``adversarial_prior``,
+``build_disc_step`` trains the PatchGAN discriminator on the generator's
+disparities against the depth network's. Both are cuDNN convolutions and
+plain ops: the reference has no kernel of its own there.
+``bundle.generator`` is that network; a step's ``generator=`` keyword is
+the ``torch.Generator`` of the automask noise.
 """
 
 from __future__ import annotations
@@ -50,6 +60,23 @@ def _f32(x):
     if x.dtype == torch.uint8:
         return x.float() * (1.0 / 255.0)
     return x.float()
+
+
+def _grayscale(img):
+    """ITU-R 601 luma of NHWC ``img`` (torchvision ``Grayscale``, the
+    reference trainer's): (B, H, W, 3) -> (B, H, W, 1)."""
+    w = torch.tensor([0.2989, 0.587, 0.114], dtype=img.dtype,
+                     device=img.device)
+    return torch.sum(img * w, dim=-1, keepdim=True)
+
+
+def gan_prior(bundle: ModelBundle, color0):
+    """The frozen generator's disparity of the grey of ``color0`` (the
+    un-augmented target, NHWC float in [0, 1]): (B, 1, H, W) float32,
+    negative where the generator's depth is."""
+    with torch.no_grad():
+        fake = bundle.generator(_nchw(_grayscale(color0)))
+    return G.depth_to_disp(fake)[1]
 
 
 def _nchw(x):
@@ -141,7 +168,9 @@ def forward_and_loss(bundle: ModelBundle, batch, train: bool = False,
         statistics.
       with_images: also return the warped sources ('color_pred/f/s') and
         the automasks (evaluation only); the warp then runs unfused.
-      generator: draws the 1e-5 tie-break noise of the automask.
+      generator: the ``torch.Generator`` that draws the 1e-5 tie-break
+        noise of the automask (the GAN prior's network is
+        ``bundle.generator``).
       noise: {scale: (B, h, w, S)} tie-break noise to use instead (tests
         pass the reference package's draw), S being the number of source
         frames and (h, w) the full size, or the scale's own under
@@ -200,6 +229,8 @@ def forward_and_loss(bundle: ModelBundle, batch, train: bool = False,
     if cfg.predictive_mask:
         masks = {s: _nhwc(m)
                  for s, m in bundle.predictive_mask(features).items()}
+    prior = (_nhwc(gan_prior(bundle, color[0]))
+             if cfg.pre_trained_generator else None)
     _check_float32(**{f"disp/{s}": d for s, d in disps.items()},
                    **{f"pose/{f}": p[0] for f, p in pose_params.items()})
 
@@ -245,7 +276,7 @@ def forward_and_loss(bundle: ModelBundle, batch, train: bool = False,
 
     losses: Dict[str, torch.Tensor] = {}
     outputs: Dict[str, object] = {"disp": disps}
-    total_loss = 0.0
+    total_loss = gan_total = 0.0
     for s in cfg.scales:
         src_s = s if multi else 0
         sh, sw = h >> src_s, w >> src_s
@@ -301,7 +332,13 @@ def forward_and_loss(bundle: ModelBundle, batch, train: bool = False,
         losses[f"min_loss/{s}"] = min_loss
         losses[f"loss/{s}"] = loss_s
         total_loss = total_loss + loss_s
+        if prior is not None:
+            gan = L.silog_loss(prior, disp_full)
+            losses[f"gan_loss/{s}"] = gan
+            gan_total = gan_total + gan
     total_loss = total_loss / cfg.num_scales
+    if prior is not None:
+        total_loss = total_loss + gan_total / cfg.num_scales * 0.002
     losses["loss"] = total_loss
     return total_loss, (losses, outputs)
 
@@ -332,13 +369,15 @@ def build_train_step(bundle: ModelBundle):
     along its first axis, each runs forward and backward in turn (the
     BatchNorm statistics carry from one to the next) and the update uses
     the mean of their gradients; the losses are the microbatches' means.
-    ``losses['grad_norm']`` is the global L2 norm of the gradients.
+    ``losses['grad_norm']`` is the global L2 norm of the gradients of
+    ``bundle.main_parameters()``, the parameters the update moves.
 
     The automask noise is ``noise`` ({scale: (B, H, W, S)} for the whole
     batch) if given, else drawn from ``generator``, else from
-    ``noise_generator(cfg.seed, state.step)``. The update is
-    ``state.optimizer``'s (``create_train_state(bundle)``), at the learning
-    rate ``state.schedule(state.step)``.
+    ``noise_generator(cfg.seed, state.step)`` (``generator`` is a
+    ``torch.Generator``; the GAN prior's network is ``bundle.generator``).
+    The update is ``state.optimizer``'s (``create_train_state(bundle)``),
+    at the learning rate ``state.schedule(state.step)``.
     """
     cfg = bundle.cfg
     accum = cfg.grad_accum
@@ -351,7 +390,7 @@ def build_train_step(bundle: ModelBundle):
         if noise is None and generator is None:
             generator = noise_generator(cfg.seed, state.step,
                                         batch["color"].device)
-        params = [p for p in bundle.parameters() if p.requires_grad]
+        params = bundle.main_parameters()
         opt.zero_grad(set_to_none=True)
         n = batch["color"].shape[0] // accum
         per_micro = []
@@ -376,6 +415,41 @@ def build_train_step(bundle: ModelBundle):
         opt.step()
         state.step += 1
         return losses
+
+    return step
+
+
+def build_disc_step(bundle: ModelBundle):
+    """-> step(state, batch, real=None) -> {'disc_loss': ...}: one update
+    of the PatchGAN discriminator by ``state.disc_optimizer`` (the
+    reference trainer's discriminator pass as the reference package fixes
+    it): real samples are the frozen generator's disparities of the
+    un-augmented target (``gan_prior``), or ``real`` (B, 1, H, W) when
+    given (tests pass the reference package's), fake ones the depth
+    network's scale-0 disparities of it with BatchNorm on its running
+    statistics, neither differentiated; the loss is 0.5 * (mean((D(real)
+    - 1)^2) + mean(D(fake)^2)). Run it after the training step, on the
+    same batch. It draws no random numbers, so it takes no
+    ``torch.Generator`` (``bundle.generator`` is the GAN prior's
+    network)."""
+    disc = bundle.discriminator
+    if disc is None:
+        raise ValueError("build_disc_step needs adversarial_prior")
+
+    def step(state: TrainState, batch, real=None):
+        with torch.no_grad():
+            color0 = _f32(batch["color"][:, 0])
+            if real is None:
+                real = gan_prior(bundle, color0)
+            bundle.train(False)
+            fake = bundle.depth(bundle.encoder(_nchw(color0)))[0]
+        loss = 0.5 * (torch.mean((disc(real) - 1.0) ** 2)
+                      + torch.mean(disc(fake) ** 2))
+        opt = state.disc_optimizer
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return {"disc_loss": loss.detach()}
 
     return step
 
