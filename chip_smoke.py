@@ -89,7 +89,20 @@ Phases, each timed on its own line:
    step repeated bit for bit under deterministic cuDNN; ``cli.train``
    with the prior and a generator ``.pth`` written from seeded weights
    for three steps, resumed from step 2 bit-equal (both Adams included);
-   ``cli.evaluate_depth`` on that run's checkpoint.
+   ``cli.evaluate_depth`` on that run's checkpoint;
+11. the mesh (``parallel.mesh``) at the trainer's feed, ``MESH_*``: (a)
+   ``cli.train`` for three steps without a process group and with an NCCL
+   group of one process (torchrun's environment, WORLD_SIZE=1), losses
+   and final parameters bit-equal, wall ms per step of each; (b) two
+   ranks on the one card as two processes through gloo
+   (``parallel.dryrun``), ``mesh_data=2`` and ``mesh_fsdp=2`` in float32
+   (TF32 off) and ``mesh_data=2`` in bfloat16, three steps of six rows per
+   rank, each step held to the one-process step from the same state
+   (float32 at the CPU tests' bounds, bfloat16 at phase 5's), the ranks
+   bit-identical after each step, fsdp's steps bit-equal to
+   ``mesh_data=2``'s, a checkpoint at step 2 and a resume from it
+   bit-equal; with each rank's ms per step, collectives, launches, peak
+   memory and the bytes of parameters and Adam moments it holds.
 
 It prints one JSON line of kernel records, then, as its last line, the
 device record. Any failure ends it with a non-zero exit code; without a
@@ -1632,8 +1645,8 @@ def recording_steps(loop, seen):
     function that undoes it."""
     real = loop.build_train_step
 
-    def build(bundle):
-        step = real(bundle)
+    def build(bundle, *args, **kwargs):
+        step = real(bundle, *args, **kwargs)
 
         def run(state, batch):
             entry = (state.step, {k: v.clone() for k, v in batch.items()},
@@ -2491,6 +2504,223 @@ def phase_gan(device="cuda"):
     return total
 
 
+# Phase 11, the mesh (parallel.mesh) at the flagship feed: B rows over two
+# ranks of B / 2, MESH_STEPS steps, a checkpoint after step MESH_CKPT_AT
+# and a resume from it. Two ranks on one card are a check of values, not a
+# speed: their times are no measure of scaling.
+MESH_STEPS, MESH_CKPT_AT = 3, 2
+MESH_ARGS = ["--dataset", "synthetic_parallax", "--weights_init", "scratch",
+             "--num_epochs", "1", "--steps_per_epoch", str(MESH_STEPS),
+             "--log_frequency", str(MESH_STEPS), "--ckpt_frequency", "0",
+             "--num_workers", "8"]
+
+
+def check_one_nccl_rank(root, device):
+    """(a) cli.train at its defaults for MESH_STEPS steps, first without a
+    process group, then under torchrun's environment for one process
+    (WORLD_SIZE=1), which starts an NCCL group: the trainer's gradient and
+    loss all-reduces then run through NCCL; a group of one adds nothing,
+    so every step's losses and the final parameters and statistics must be
+    bit-equal. -> launches of both runs."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.cli.train import main as train
+    from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+    from unsupervised_pose_estimation_tpu_torch.parallel import mesh as M
+    from unsupervised_pose_estimation_tpu_torch.parallel.dryrun import \
+        free_port
+    from unsupervised_pose_estimation_tpu_torch.train import loop
+
+    args = MESH_ARGS + ["--batch_size", str(B), "--height", str(H),
+                        "--width", str(W)]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    total = {k: 0 for k in KERNELS}
+    runs = {}
+    for name, extra in (("no group", {}), ("NCCL WORLD_SIZE=1", env)):
+        seen = []
+        undo = recording_steps(loop, seen)
+        os.environ.update(extra)
+        K.reset_counts()
+        collectives = sum(M.COUNTS.values())
+        try:
+            trainer = train(args + ["--log_dir", os.path.join(
+                root, name.replace(" ", "_"))], device=device)
+        finally:
+            undo()
+            for key in extra:
+                os.environ.pop(key)
+        for k, v in K.counts().items():
+            total[k] += v
+        entries = [t for _, _, t, _ in seen]
+        runs[name] = dict(
+            losses=[losses for *_, losses in seen],
+            state={k: v.detach().cpu() for k, v in
+                   trainer.bundle.state_dict().items()},
+            ms=[round(1e3 * (b - a), 1) for a, b in zip(entries,
+                                                         entries[1:])],
+            group=trainer.mesh.group is not None,
+            collectives=sum(M.COUNTS.values()) - collectives)
+    plain, nccl = runs["no group"], runs["NCCL WORLD_SIZE=1"]
+    if plain["group"] or not nccl["group"] or not nccl["collectives"]:
+        raise AssertionError("the NCCL run did not train over its group")
+    unequal = [f"step {k} {name}" for k, (a, b) in enumerate(
+        zip(plain["losses"], nccl["losses"])) for name in a
+        if not torch.equal(a[name], b[name])]
+    unequal += [key for key, v in plain["state"].items()
+                if not torch.equal(v, nccl["state"][key])]
+    print(f"  (a) cli.train, {MESH_STEPS} steps at batch {B}, {H}x{W}, "
+          f"bf16: wall ms between step starts without a group "
+          f"{plain['ms']}, with an NCCL group of one {nccl['ms']} "
+          f"({nccl['collectives']} collectives); losses and final "
+          f"parameters and statistics bit-equal: {not unequal}", flush=True)
+    if unequal:
+        raise AssertionError(f"the NCCL run differs: {unequal[:5]}")
+    return total
+
+
+def bf16_mesh_failures(res):
+    """The phase-5 bfloat16 bounds on a bfloat16 case of the dry run, per
+    step against the one-process step from the same state: each loss
+    within BF16_LOSS times the largest bf16-float32 gap of the one-process
+    losses plus 1e-4 of its value; the share of parameters whose update
+    took the other sign within BF16_MEAN times that share between the
+    one-process bf16 and float32 updates; the statistics within BF16_MAX
+    times their gap. -> (failures, the worst shares of each bound)."""
+    failed, worst = [], [0.0, 0.0, 0.0]
+    for k, st in enumerate(res["steps"]):
+        cmp, got = st["compare"], st["losses"]
+        ref, f32 = cmp["ref_losses"], cmp["f32_losses"]
+        keys = [n for n in ref if n != "grad_norm"]
+        gap = max(abs(ref[n] - f32[n]) for n in keys)
+        shares = (max(abs(got[n] - ref[n]) / (BF16_LOSS * gap + 1e-4
+                                                * abs(ref[n])) for n in keys),
+                  cmp["flipped"] / (BF16_MEAN * cmp["flipped_gap"]),
+                  cmp["stats_max"] / (BF16_MAX * cmp["stats_gap"]))
+        worst = [max(a, b) for a, b in zip(worst, shares)]
+        if not max(shares) <= 1.0:
+            failed.append(f"step {k}: shares of the bf16 bounds {shares}")
+    return failed, worst
+
+
+def check_two_ranks(root, device="cuda"):
+    """(b) Two ranks on the one card, two processes through gloo
+    (``parallel.dryrun``; NCCL refuses two ranks on one device):
+    ``mesh_data=2``, then ``mesh_data=1 mesh_fsdp=2``, in float32 (TF32
+    off), and ``mesh_data=2`` in bfloat16, MESH_STEPS steps each on global
+    batches of B ``synthetic_parallax`` items, every step held to the
+    one-process step from the same state (float32: ``dryrun.check``'s
+    bounds; bfloat16: ``bf16_mesh_failures``), the ranks bit-identical
+    after every step, a checkpoint after step MESH_CKPT_AT written once,
+    and the run resumed from it bit-equal. fsdp runs the arithmetic of
+    ``mesh_data=2`` (the same all-reduced gradient; Adam is elementwise),
+    so its steps must also repeat that case's bit for bit. -> the ranks'
+    launches."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.config import Options
+    from unsupervised_pose_estimation_tpu_torch.parallel import dryrun
+
+    start = time.perf_counter()
+    # the global batches, rendered once here for both ranks
+    batches = os.path.join(root, "batches.pt")
+    torch.save({"batches": dryrun.make_batches(
+        Options(height=H, width=W, batch_size=B), MESH_STEPS, "cpu"),
+        "noise": [None] * MESH_STEPS}, batches)
+    cases = [{"name": f"{mesh}_{dtype}", "steps": MESH_STEPS,
+              "compare": MESH_STEPS, "ckpt_at": MESH_CKPT_AT,
+              "batch": batches,
+              "options": dict(height=H, width=W, batch_size=B,
+                              learning_rate=LR, compute_dtype=dtype,
+                              **layout)}
+             for mesh, dtype, layout in (
+                 ("data", "float32", dict(mesh_data=2)),
+                 ("fsdp", "float32", dict(mesh_data=1, mesh_fsdp=2)),
+                 ("data", "bfloat16", dict(mesh_data=2)))]
+    results = dryrun.launch(cases, 2, "cuda:0" if device == "cuda" else
+                            device, os.path.join(root, "ranks"),
+                            timeout=300, threads=4)
+    print(f"  (b) two ranks through gloo on one card: {len(cases)} cases "
+          f"in {time.perf_counter() - start:.1f} s (the batches' rendering "
+          f"and the processes' start included)", flush=True)
+    total = {k: 0 for k in KERNELS}
+    failed = []
+    for case in cases:
+        name = case["name"]
+        ranks = [r[name] for r in results]
+        head = ranks[0]
+        fails = dryrun.check(results, name)
+        if name.startswith("fsdp"):
+            twin = results[0][name.replace("fsdp", "data")]["steps"]
+            if [(st["digest"], st["losses"]) for st in head["steps"]] != [
+                    (st["digest"], st["losses"]) for st in twin]:
+                fails.append("its steps differ from mesh_data=2's")
+        if head["bf16"]:
+            more, worst = bf16_mesh_failures(head)
+            fails += more
+            detail = (f"bf16 bounds' worst shares: losses {worst[0]:.3f}, "
+                      f"update signs {worst[1]:.3f}, statistics "
+                      f"{worst[2]:.3f}")
+        else:
+            cmp = [st["compare"] for st in head["steps"]]
+            rel = max(abs(st["losses"][n] - c["ref_losses"][n])
+                      / abs(c["ref_losses"][n])
+                      for st, c in zip(head["steps"], cmp)
+                      for n in c["ref_losses"] if n != "grad_norm")
+            detail = (f"losses' worst relative error {rel:.3e} (tol "
+                      f"{dryrun.LOSS_RTOL}), parameters "
+                      f"{max(c['param_max'] for c in cmp) / LR:.3f} lr "
+                      f"apart (tol {dryrun.PARAM_LR} lr + "
+                      f"{dryrun.PARAM_ATOL}), at most "
+                      f"{max(c['param_beyond_0.1lr'] for c in cmp):.3%} of "
+                      f"them more than 0.1 lr apart (tol "
+                      f"{dryrun.BEYOND_SHARE:.0%}), statistics "
+                      f"{max(c['stats_max'] for c in cmp):.3e} (tol "
+                      f"{dryrun.STATS_ATOL})")
+        for res in ranks:
+            for k, v in res["launches"].items():
+                total[k] += v
+        per_step = {k: v // MESH_STEPS for k, v in
+                    head["launches"].items() if v}
+        held = [[r["bytes"][k] for k in ("parameters", "exp_avg",
+                                          "exp_avg_sq")] for r in ranks]
+        by_part = {k: round(v, 1) for k, v in head["seconds_by_part"].items()}
+        print(f"  {name} ({head['seconds']:.1f} s on rank 0: {by_part}): ms "
+              f"per step by rank "
+              f"{[[round(st['ms'], 1) for st in r['steps']] for r in ranks]};"
+              f" {head['steps'][-1]['collectives']} collectives a step; "
+              f"launches per rank and step {per_step}; peak GiB by rank "
+              f"{[round((r['peak_bytes'] or 0) / 2**30, 3) for r in ranks]}; "
+              f"bytes held by rank (parameters, exp_avg, exp_avg_sq of "
+              f"{head['bytes']['total']}) {held}; "
+              f"{detail}; ranks bit-identical after every step and the "
+              f"resume from step {MESH_CKPT_AT} bit-equal: "
+              f"{not [f for f in fails if 'differ' in f or 'bit' in f]}",
+              flush=True)
+        if device == "cuda" and (per_step.get("warp_reproj_loss") != 8 or
+                                 per_step.get("warp_reproj_loss_bwd") != 8):
+            fails.append(f"launches {head['launches']}")
+        failed += [f"{name}: {f}" for f in fails]
+    if failed:
+        raise AssertionError(f"the mesh disagrees: {failed}")
+    return total
+
+
+def phase_mesh(device="cuda"):
+    """Phase 11 (the mesh): (a) ``check_one_nccl_rank``, (b)
+    ``check_two_ranks``. -> the launches of both."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        total = check_one_nccl_rank(root, device)
+        for k, v in check_two_ranks(root, device).items():
+            total[k] += v
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  mesh phase launches {total}; {card_line()}", flush=True)
+    return total
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -2540,6 +2770,7 @@ def main() -> int:
         phase_evaluation(ckpt)
         add(phase_options())
         add(phase_gan())
+        add(phase("mesh")(phase_mesh)())
     finally:
         shutil.rmtree(work, ignore_errors=True)
     missing = [name for name, n in launches.items() if n == 0]

@@ -22,6 +22,16 @@ from unsupervised_pose_estimation_tpu_torch.ops import augment_device as TA
 from unsupervised_pose_estimation_tpu_torch.train import state as TS
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port, so that pytest's parallel workers
+    do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def frames(b=6, f=3, h=16, w=24, seed=0):
     """Smooth colour gradients plus noise: every hue and some grey pixels
     (S == 0 after truncation), uint8 (B, F, H, W, 3)."""

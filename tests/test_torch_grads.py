@@ -41,6 +41,16 @@ reproj_loss_mod = importlib.import_module(
 RTOL, ATOL = 1e-4, 2e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port, so that pytest's parallel workers
+    do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def assert_grid_grads_close(got, want):
     """rtol 1e-4 and an absolute floor of 1e-6 of the largest gradient:
     the float32 noise of the window sums scales with it (up to ~130 for

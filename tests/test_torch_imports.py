@@ -104,3 +104,13 @@ def test_option_modules_are_among_those_checked():
     for name in ("models.pose_cnn", "models.depth_decoder", "ops.resize",
                  "train.bundle", "train.step", "convert", "serve"):
         assert f"{port.__name__}.{name}" in modules, name
+
+
+def test_mesh_modules_are_among_those_checked():
+    """The mesh, its dry run and the modules that take a process group are
+    imported, JAX-free, above."""
+    modules = set(port_modules())
+    for name in ("parallel", "parallel.mesh", "parallel.dryrun",
+                 "data.pipeline", "models.layers", "train.state",
+                 "train.checkpoint", "train.loop", "cli.train"):
+        assert f"{port.__name__}.{name}" in modules, name

@@ -27,6 +27,16 @@ from unsupervised_pose_estimation_tpu_torch.ops.kernels import _lib
 B, C, H, W = 2, 3, 64, 128
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port, so that pytest's parallel workers
+    do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_kernels():
     """The Pallas kernels in interpret mode, jitted once per module."""

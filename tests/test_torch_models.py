@@ -28,6 +28,16 @@ H, W = 64, 128
 RTOL, ATOL = 1e-4, 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port, so that pytest's parallel workers
+    do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def perturb(tree, rng):
     """Redraw BatchNorm statistics/scales and biases (init leaves them at
     0, 1 or 0), keeping activations of order one."""

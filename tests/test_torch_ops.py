@@ -28,6 +28,16 @@ from unsupervised_pose_estimation_tpu_torch.ops import warp as TW
 RTOL, ATOL = 1e-5, 1e-6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port, so that pytest's parallel workers
+    do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def close(t, j, rtol=RTOL, atol=ATOL):
     np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), rtol=rtol,
                                atol=atol)

@@ -37,6 +37,16 @@ B, H, W = 2, 64, 128
 KEY = jax.random.PRNGKey(3)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port, so that pytest's parallel workers
+    do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def perturb(tree, rng):
     """Redraw BatchNorm statistics/scales and biases away from their init."""
     def walk(node, name=""):

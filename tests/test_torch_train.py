@@ -51,6 +51,7 @@ from unsupervised_pose_estimation_tpu_torch.config import Options
 from unsupervised_pose_estimation_tpu_torch.convert import from_jax
 from unsupervised_pose_estimation_tpu_torch.ops.augment_device import \
     batch_augment
+from unsupervised_pose_estimation_tpu_torch.parallel import dryrun
 from unsupervised_pose_estimation_tpu_torch.train.bundle import ModelBundle
 from unsupervised_pose_estimation_tpu_torch.train.state import \
     create_train_state
@@ -190,3 +191,32 @@ def test_train_trajectory_matches_jax(reference, fused):
     port = port_run(reference["trajectory"], reference["port_batch"],
                     use_pallas_warp_loss=fused)
     compare_steps(port, reference["trajectory"])
+
+
+def test_two_ranks_match_the_first_jax_step(reference, tmp_path):
+    """The same first step over two gloo processes of one row each
+    (``parallel.dryrun``, ``mesh_data=2``), at this file's bounds: each
+    rank's BatchNorm takes the statistics of both rows, its automask noise
+    is its row of the reference's draw, and the gradients are averaged over
+    the ranks, which end with the same parameters."""
+    ref = reference["trajectory"][0]
+    torch.save(from_jax(*ref["before"]), tmp_path / "init.pt")
+    batch = {k: torch.from_numpy(np.asarray(v))
+             for k, v in reference["port_batch"].items()}
+    torch.save({"batches": [batch], "noise": [jax_noise(0)]},
+               tmp_path / "batch.pt")
+    cfg = dict(height=H, width=W, batch_size=B, compute_dtype="float32",
+               learning_rate=LR, mesh_data=2)
+    case = {"name": "jax", "options": cfg, "return_after": True,
+            "init": str(tmp_path / "init.pt"),
+            "batch": str(tmp_path / "batch.pt")}
+    results = dryrun.launch([case], 2, "cpu", str(tmp_path / "run"),
+                            timeout=240)
+    assert dryrun.check(results, "jax") == []  # the ranks agree
+    after = torch.load(tmp_path / "run" / "jax" / "after.pt",
+                       weights_only=True)
+    with torch.device("meta"):
+        names = {n: None for n, _ in ModelBundle(Options(**cfg))
+                 .named_parameters()}
+    losses = results[0]["jax"]["steps"][0]["losses"]
+    compare_steps([(losses, after, names)], reference["trajectory"][:1])

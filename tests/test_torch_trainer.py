@@ -299,7 +299,7 @@ def test_trainer_needs_a_card_unless_the_cpu_is_asked_for(tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(Options(**COMMON, log_dir=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="needs more than 1 devices"):
         Trainer(Options(**COMMON, log_dir=str(tmp_path), mesh_fsdp=2),
                 device="cpu")
 

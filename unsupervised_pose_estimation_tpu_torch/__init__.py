@@ -6,10 +6,10 @@ TPU kernel on the ported path rewritten as a hand-written CUDA kernel for
 Hopper (``csrc/``, bound through ``ops.kernels``). It imports nothing of the
 JAX package.
 
-Ported so far, for the ResNet + fork-decoder + separate-ResNet-pose
-configuration in float32: the training entry point (``cli.train`` ->
-``train.loop.Trainer``, with ``data``, ``train.checkpoint`` and
-``train.logging``), the training and validation steps (``train.step``), the
-warp ladder, and depth serving (``serve.InferenceEngine`` /
-``serve.MicroBatcher``).
+Ported so far, for every training option at either compute dtype: the
+training entry point (``cli.train`` -> ``train.loop.Trainer``, with
+``data``, ``train.checkpoint`` and ``train.logging``) on one device or over
+a mesh of processes (``parallel``), the training and validation steps
+(``train.step``), the warp ladder, evaluation (``eval``, ``cli``) and
+depth serving (``serve.InferenceEngine`` / ``serve.MicroBatcher``).
 """

@@ -4,8 +4,9 @@ Same field names and defaults as ``unsupervised_pose_estimation_tpu/
 config.py::Options``, so a config written by either package loads in the
 other (``to_json`` / ``from_json``), and the same command line
 (``parse_options``, ``PRESETS``) gives the same options. The TPU knobs
-``pallas_*_interpret`` are accepted and ignored; ``mesh_*`` other than one
-device makes the trainer raise. The kernel switches route as in the
+``pallas_*_interpret`` are accepted and ignored; ``mesh_*`` lay out the
+(dcn, data, fsdp) mesh over the processes of a ``torchrun`` launch
+(``parallel.mesh``). The kernel switches route as in the
 reference: ``use_pallas_warp_loss`` picks the fused warp + loss kernels
 (K1/K2) over the warp and loss kernels (K5, K3/K4), ``pallas_warp_version``
 the warp's kernel ladder, and ``use_pallas_warp=False`` /
@@ -111,9 +112,11 @@ class Options:
     depth_decoder_variant: str = "fork"
     compute_dtype: str = "bfloat16"  # the networks' dtype: "bfloat16" or
     # "float32" (TF32 off on the card); parameters stay float32
-    mesh_data: int = -1  # the trainer runs on one device: -1 or 1
-    mesh_fsdp: int = 1   # 1 only
-    mesh_dcn: int = 1    # 1 only
+    mesh_data: int = -1  # data-parallel processes; -1: the world's
+    # processes over fsdp x dcn
+    mesh_fsdp: int = 1   # processes sharing one copy of the parameters
+    # and Adam moments (each keeps 1/fsdp); the batch is split over it too
+    mesh_dcn: int = 1    # the axis between nodes: 1 or the number of nodes
     grad_accum: int = 1
     prefetch: int = 2
     device_augment: bool = True

@@ -12,8 +12,11 @@ buffers, and the consumer copies batch N+1 to the device on a side stream
 while the caller runs step N: the caller's stream waits on the copy's event
 before it sees the batch, the device tensors are recorded on the caller's
 stream, and a pinned buffer is refilled only after its copy has completed.
-Multi-host row selection (the reference's ``process_local_rows``) is not
-ported.
+
+Over a mesh of processes (``parallel.mesh``) each rank's Loader builds only
+its rows of every global batch (``rows``, from ``process_local_rows``),
+under the same shuffle on every rank, as the reference's multi-host
+Loader does.
 """
 
 from __future__ import annotations
@@ -41,6 +44,26 @@ def collate(items, out: Optional[Dict[str, np.ndarray]] = None) -> dict:
     for key in items[0]:
         np.stack([it[key] for it in items], 0, out=out[key])
     return out
+
+
+def rows_from_slices(slices, global_batch: int) -> np.ndarray:
+    """Union of leading-axis index slices -> sorted global row indices (an
+    entry may be a tuple whose first element addresses the batch axis, as
+    in a sharding's index map)."""
+    rows = set()
+    for idx in slices:
+        sl = idx[0] if isinstance(idx, tuple) else idx
+        rows.update(range(*sl.indices(global_batch)))
+    return np.asarray(sorted(rows), dtype=np.int64)
+
+
+def process_local_rows(mesh, global_batch: int, accum: int = 1
+                       ) -> np.ndarray:
+    """The global batch rows this process builds, in the order its step
+    takes them: its share of each of the ``accum`` microbatches
+    (``Mesh.batch_slices``), one contiguous block without accumulation."""
+    return np.concatenate([rows_from_slices([sl], global_batch)
+                           for sl in mesh.batch_slices(global_batch, accum)])
 
 
 # Process workers: the dataset is pickled once into each spawned worker,
@@ -120,6 +143,8 @@ class Loader:
         > 0; falls back to threads if the dataset cannot be pickled.
       prefetch: host batches queued ahead of the consumer.
       infinite: iterate over epochs 0, 1, ... without end.
+      rows: build only these rows of each batch of ``batch_size`` (this
+        rank's, ``process_local_rows``), in this order; None: all.
 
     ``wait_seconds`` sums the time the consumer waited on the queue (the
     host's share of an input-bound step), ``batches`` counts the batches
@@ -129,8 +154,10 @@ class Loader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  device="cpu", num_workers: int = 8, prefetch: int = 2,
                  seed: int = 0, infinite: bool = False,
-                 num_worker_procs: int = 0):
+                 num_worker_procs: int = 0,
+                 rows: Optional[np.ndarray] = None):
         self.dataset = dataset
+        self.rows = None if rows is None else np.asarray(rows, np.int64)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.device = torch.device(device)
@@ -198,6 +225,8 @@ class Loader:
         (mid-epoch resume: batch N is the one an uninterrupted run sees).
         Worker errors are raised here, in the consumer."""
         batches = self._indices(epoch)[start_batch:]
+        if self.rows is not None:
+            batches = batches[:, self.rows]
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         proc_pool = self._get_proc_pool() if self.num_worker_procs else None

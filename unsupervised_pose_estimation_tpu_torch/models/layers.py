@@ -19,8 +19,11 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import all_gather, all_reduce_
 
 
 def cast(x, dtype: Optional[torch.dtype]):
@@ -127,16 +130,26 @@ class BatchNorm2d(nn.BatchNorm2d):
     Parameters and buffers keep ``nn.BatchNorm2d``'s names. Under a
     bfloat16 ``compute_dtype`` it is flax's ``BatchNorm(dtype=bfloat16)``:
     statistics formed in float32, the input normalised in float32 and the
-    result rounded once to bfloat16."""
+    result rounded once to bfloat16.
+
+    With ``stats_group`` (a process group of more than one rank, set by
+    ``parallel.mesh.share_batch_statistics``) it trains on the statistics
+    of the global batch, as the reference's BatchNorm under a sharded jit
+    (``_GlobalBatchNorm``: one collective forward, one backward); every
+    rank ends with the same running statistics."""
 
     def __init__(self, num_features: int,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__(num_features)
         self.compute_dtype = compute_dtype
+        self.stats_group = None
 
     def forward(self, x):
         if not self.training:
             return cast(super().forward(x), self.compute_dtype)
+        group = self.stats_group
+        if group is not None and dist.get_world_size(group) > 1:
+            return self._global_batch(x, group)
         out = F.batch_norm(x, None, None, self.weight, self.bias,
                            training=True, eps=self.eps)
         with torch.no_grad():
@@ -147,6 +160,70 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_((1.0 - m) * self.running_var + m * var)
             self.num_batches_tracked.add_(1)
         return cast(out, self.compute_dtype)
+
+    def _global_batch(self, x, group):
+        out, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                                self.eps, group)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1.0 - m) * self.running_var + m * var)
+            self.num_batches_tracked.add_(1)
+        return cast(out, self.compute_dtype)
+
+
+def _bc(v):
+    return v[None, :, None, None]
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training-mode batch normalisation of NCHW ``x`` on the statistics of
+    every rank's rows of ``group``, in ``widen(x)``'s float type: ->
+    (output, mean, biased variance).
+
+    Forward: each rank's count, mean and biased variance of its rows (one
+    ``var_mean`` pass, as on one device) are all-gathered and combined in
+    float64 (Chan's parallel formula, no cancellation), then rounded once;
+    every rank combines the same values in the same order, so all get the
+    same bits. Backward: the standard BatchNorm gradient, whose two sums
+    over the batch (of dy and of dy * x_hat) are all-reduced over the
+    ranks: the gradient of the sum of every rank's loss, which the mesh's
+    gradient mean turns into that of the global batch's. Only ``x`` and
+    per-channel vectors are kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        xf = widen(x)
+        c = xf.shape[1]
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+        count = torch.full((1,), xf.numel() // c, dtype=torch.float64,
+                           device=xf.device)
+        local = torch.cat([count, mean.double(), var.double()])
+        ranks = torch.stack(all_gather(local, group))  # (world, 1 + 2c)
+        n = ranks[:, :1]
+        total = n.sum()
+        mean64 = (n * ranks[:, 1:c + 1]).sum(0) / total
+        m2 = (n * (ranks[:, c + 1:] + (ranks[:, 1:c + 1] - mean64) ** 2)
+              ).sum(0)
+        mean, var = mean64.to(xf.dtype), (m2 / total).to(xf.dtype)
+        invstd = torch.rsqrt(var + eps)
+        out = (xf - _bc(mean)) * _bc(invstd) * _bc(weight) + _bc(bias)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.group, ctx.total = group, float(total)
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        xhat = (widen(x) - _bc(mean)) * _bc(invstd)
+        c = xhat.shape[1]
+        dims = (0, 2, 3)
+        local = torch.cat([dout.sum(dims), (dout * xhat).sum(dims)])
+        sums = all_reduce_(local.clone(), ctx.group) / ctx.total
+        dx = ((dout - _bc(sums[:c]) - xhat * _bc(sums[c:]))
+              * _bc(invstd * weight))
+        return dx.to(x.dtype), local[c:], local[:c], None, None
 
 
 def instance_norm(x, eps: float = 1e-5):

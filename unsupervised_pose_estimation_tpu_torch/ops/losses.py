@@ -70,14 +70,28 @@ def normalized_disp(disp, eps: float = 1e-7):
     return disp / (torch.mean(disp, dim=(1, 2), keepdim=True) + eps)
 
 
+def tie_break_noise(shape, generator, device, rows=None):
+    """The reference's 1e-5 * N(0, 1) automask tie-break of ``shape``,
+    drawn from ``generator``. With ``rows`` = (start, stop, batch) it is
+    drawn for a batch of ``batch`` rows and cut to rows [start, stop), so
+    that each rank of a mesh takes its rows of the global batch's draw."""
+    if rows is None:
+        return torch.randn(shape, generator=generator, device=device) * 1e-5
+    start, stop, batch = rows
+    full = torch.randn((batch,) + tuple(shape[1:]), generator=generator,
+                       device=device)
+    return full[start:stop] * 1e-5
+
+
 def min_reprojection(reproj, identity_reproj, noise=None, generator=None,
-                     avg_reprojection: bool = False):
+                     avg_reprojection: bool = False, noise_rows=None):
     """Min over sources with identity automasking.
 
     reproj, identity_reproj: (B, H, W, S); identity_reproj None disables
     automasking. The identity losses get the reference's 1e-5 * N(0, 1)
     tie-break: ``noise`` is that term as given (tests pass the JAX
-    package's draw), else it is drawn from ``generator``.
+    package's draw), else it is drawn from ``generator``
+    (``tie_break_noise`` with ``noise_rows``).
 
     Returns (to_optimise (B, H, W), automask (B, H, W) or None), automask
     being 1 where a warped source won the min.
@@ -91,8 +105,8 @@ def min_reprojection(reproj, identity_reproj, noise=None, generator=None,
     if avg_reprojection:
         identity_reproj = torch.mean(identity_reproj, dim=-1, keepdim=True)
     if noise is None:
-        noise = torch.randn(identity_reproj.shape, generator=generator,
-                            device=identity_reproj.device) * 1e-5
+        noise = tie_break_noise(identity_reproj.shape, generator,
+                                identity_reproj.device, noise_rows)
     identity_reproj = identity_reproj + noise
     combined = torch.cat([identity_reproj, reproj], dim=-1)
     # amin splits a tie's gradient evenly, as jnp.min does (torch.min's
@@ -103,18 +117,25 @@ def min_reprojection(reproj, identity_reproj, noise=None, generator=None,
     return to_optimise, automask
 
 
-def silog_loss(fake, real):
+def silog_loss(fake, real, reduce=None):
     """Scale-invariant log loss of a prediction ``real`` against the
     pseudo-disparity prior ``fake`` (same shape), a scalar: pixels where
     either is <= 0 are set to 1 in both (a log difference of 0), N counts
     the pixels where ``real`` > 0, clamped at 1, and the loss is
-    sqrt(sum(d^2) / N - (sum(d) / N)^2) of d = log(real) - log(fake)."""
-    n = torch.clamp((real > 0).to(real.dtype).sum(), min=1.0)
+    sqrt(sum(d^2) / N - (sum(d) / N)^2) of d = log(real) - log(fake).
+    ``reduce`` maps the three sums (a (3,) tensor) to their totals over a
+    mesh (``parallel.mesh.all_reduce_sum``), making it the loss of the
+    global batch."""
     invalid = (real <= 0) | (fake <= 0)
     one = torch.ones((), dtype=real.dtype, device=real.device)
     d = (torch.log(torch.where(invalid, one, real))
          - torch.log(torch.where(invalid, one, fake)))
-    return torch.sqrt(torch.sum(d * d) / n - (torch.sum(d) / n) ** 2)
+    sums = torch.stack([torch.sum(d * d), torch.sum(d),
+                        (real > 0).to(real.dtype).sum()])
+    if reduce is not None:
+        sums = reduce(sums)
+    n = torch.clamp(sums[2], min=1.0)
+    return torch.sqrt(sums[0] / n - (sums[1] / n) ** 2)
 
 
 def rmse_log_loss(fake, real, eps: float = 1e-8):

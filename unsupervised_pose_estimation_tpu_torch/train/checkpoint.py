@@ -8,6 +8,12 @@ with ``adversarial_prior`` the discriminator Adam's, and the step;
 ``opt.json`` beside it holds the options. Each file is written to a
 temporary name and published with ``os.replace``, so a reader sees a whole
 checkpoint or none, and the ``keep`` newest are kept.
+Over a mesh of processes every rank saves and restores: under fsdp the
+shards of the parameters and of the Adam moments are gathered, rank 0
+writes the same file a single process writes, and every rank waits for it
+at a barrier; every rank reads a checkpoint (the directory must be one
+they all see) and takes its own shard. So a checkpoint of any number of
+processes restores on any other number.
 An orbax directory written by the reference package is refused: reading it
 needs JAX.
 
@@ -31,7 +37,8 @@ from torch import nn
 
 from ..config import Options
 from .bundle import ModelBundle
-from .state import TrainState
+from .state import (TrainState, full_params, load_optimizer_state_dict,
+                    optimizer_state_dict)
 
 _CKPT = re.compile(r"(\d+)\.pt")
 
@@ -68,12 +75,24 @@ def latest_step(directory: str) -> Optional[int]:
 
 def save_checkpoint(directory: str, bundle: ModelBundle, state: TrainState,
                     cfg: Optional[Options] = None, keep: int = 10) -> str:
-    """Write the checkpoint of ``state.step``; -> its path."""
-    os.makedirs(directory, exist_ok=True)
+    """Write the checkpoint of ``state.step``; -> its path. Over a mesh
+    (``state.mesh``) every rank calls it, and rank 0 writes."""
+    mesh = state.mesh
     path = os.path.join(directory, f"{state.step}.pt")
+    with full_params(state):
+        optimizer = optimizer_state_dict(state)
+        if mesh is None or mesh.rank == 0:
+            _write(directory, path, bundle, state, optimizer, cfg, keep)
+    if mesh is not None:
+        mesh.barrier(next(bundle.parameters()).device)
+    return path
+
+
+def _write(directory, path, bundle, state, optimizer, cfg, keep):
+    os.makedirs(directory, exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
     saved = {"step": state.step, "bundle": bundle.state_dict(),
-             "optimizer": state.optimizer.state_dict()}
+             "optimizer": optimizer}
     if state.disc_optimizer is not None:
         saved["disc_optimizer"] = state.disc_optimizer.state_dict()
     torch.save(saved, tmp)
@@ -85,7 +104,6 @@ def save_checkpoint(directory: str, bundle: ModelBundle, state: TrainState,
         os.replace(tmp, os.path.join(directory, "opt.json"))
     for old in _steps(directory)[:-keep]:
         os.remove(os.path.join(directory, f"{old}.pt"))
-    return path
 
 
 def restore_checkpoint(directory: str, bundle: ModelBundle,
@@ -97,7 +115,8 @@ def restore_checkpoint(directory: str, bundle: ModelBundle,
     (None without one). The bundle must have the checkpoint's networks: a
     GAN prior's checkpoint restores only into a bundle built with its
     ``pre_trained_generator`` and ``adversarial_prior``, as in the
-    reference package."""
+    reference package. Under fsdp each rank keeps its shard of the
+    parameters and of the Adam moments."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -106,10 +125,13 @@ def restore_checkpoint(directory: str, bundle: ModelBundle,
     saved = torch.load(os.path.join(directory, f"{step}.pt"),
                        map_location="cpu", weights_only=True)
     _check_gan_networks(bundle, saved["bundle"])
-    bundle.load_state_dict(saved["bundle"])
+    with full_params(state):
+        bundle.load_state_dict(saved["bundle"])
+        if state is not None and state.shards is not None:
+            state.shards.scatter()
     if state is None:
         return None
-    state.optimizer.load_state_dict(saved["optimizer"])
+    load_optimizer_state_dict(state, saved["optimizer"])
     if state.disc_optimizer is not None:
         state.disc_optimizer.load_state_dict(saved["disc_optimizer"])
     state.step = int(saved["step"])

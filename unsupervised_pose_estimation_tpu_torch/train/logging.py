@@ -2,7 +2,9 @@
 optional Weights & Biases, and profiler traces.
 
 Port of ``unsupervised_pose_estimation_tpu/train/logging.py``, with the same
-``metrics.jsonl`` records and console lines. W&B is opt-in and skipped with
+``metrics.jsonl`` records and console lines. Over a mesh of processes
+only rank 0 prints, writes and logs (the values are global already). W&B is
+opt-in and skipped with
 a message when not installed. ``Profiler`` traces a window of steps with
 ``torch.profiler`` (CPU and CUDA activities) and writes a Chrome trace to
 ``profile_dir``.
@@ -37,18 +39,24 @@ def normalize_image(x):
 
 
 class MetricLogger:
+    """Console lines, ``metrics.jsonl`` and W&B, from rank 0 only
+    (``rank``: this process's)."""
+
     def __init__(self, log_dir: str, model_name: str, use_wandb: bool = False,
                  jsonl: bool = True, config: Optional[dict] = None,
-                 total_steps: Optional[int] = None):
+                 total_steps: Optional[int] = None, rank: int = 0):
         self.log_path = os.path.join(log_dir, model_name)
         os.makedirs(self.log_path, exist_ok=True)
         self.start_time = time.time()
         self.total_steps = total_steps
+        self.writes = rank == 0
         self._jsonl = None
+        self._wandb = None
+        if not self.writes:
+            return
         if jsonl:
             self._jsonl = open(os.path.join(self.log_path, "metrics.jsonl"),
                                "a", buffering=1)
-        self._wandb = None
         if use_wandb:
             try:
                 import wandb
@@ -62,6 +70,8 @@ class MetricLogger:
     def log_time(self, epoch: int, batch_idx: int, step: int,
                  duration: float, batch_size: int, loss: float):
         """The reference trainer's console line."""
+        if not self.writes:
+            return
         samples_per_sec = batch_size / max(duration, 1e-9)
         elapsed = time.time() - self.start_time
         if self.total_steps and step > 0:
@@ -90,6 +100,8 @@ class MetricLogger:
         """Per-scale disp/automask/warped images: to W&B when enabled,
         else PNGs under ``<log_path>/images/step_<N>/`` (PIL, imported
         here)."""
+        if not self.writes:
+            return
         if self._wandb:
             payload = {}
             for name, img in images.items():

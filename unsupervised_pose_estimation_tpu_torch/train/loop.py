@@ -1,7 +1,7 @@
 """Trainer: data, training steps, validation, logging and checkpoints.
 
 Port of ``unsupervised_pose_estimation_tpu/train/loop.py`` with the same
-structure, on one device. Every random stream is a function of the seed
+structure. Every random stream is a function of the seed
 and the global step: the training step's automask noise comes from
 ``noise_generator(seed, step)``, validation's from ``(seed + 2, step)``,
 and the Loader's shuffle and item draws from the seed, the epoch and the
@@ -12,6 +12,13 @@ card it also computes the same steps, bit for bit. With
 ``adversarial_prior`` every training step is followed by one
 discriminator update on the same batch (``build_disc_step``), whose Adam
 moments the checkpoints carry too.
+
+Over the processes of a default process group (``torchrun``; see
+``cli.train``) the ``mesh_*`` options lay out the reference's (dcn, data,
+fsdp) mesh (``parallel.mesh.make_mesh``): each rank builds and trains on
+its rows of every global batch, the steps compute the global batch's
+losses and update, checkpoints are written by rank 0, and only rank 0
+prints and logs. Without a group the trainer runs on one device.
 """
 
 from __future__ import annotations
@@ -28,13 +35,14 @@ import torch
 from ..config import Options
 from ..data.datasets import (SyntheticDataset, SyntheticParallaxDataset,
                              make_dataset)
-from ..data.pipeline import Loader
+from ..data.pipeline import Loader, process_local_rows
 from ..data.split import readlines, resolve_split_file
 from ..ops.geometry import disp_to_depth
+from ..parallel.mesh import all_gather, make_mesh, rank_device
 from . import checkpoint as ck
 from .bundle import ModelBundle
 from .logging import MetricLogger, Profiler
-from .state import create_train_state
+from .state import create_train_state, full_params, shard_train_state
 from .step import (build_disc_step, build_eval_step, build_train_step,
                    noise_generator)
 
@@ -94,21 +102,29 @@ class Trainer:
         if sampling is not None:
             cfg = dataclasses.replace(cfg, sampling_frequency=sampling)
         cfg.validate()
-        if cfg.mesh_data not in (-1, 1) or cfg.mesh_fsdp != 1 \
-                or cfg.mesh_dcn != 1:
-            raise NotImplementedError(
-                "the trainer runs on one device: mesh_data must be -1 or 1, "
-                "mesh_fsdp and mesh_dcn 1")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = make_mesh(cfg.mesh_data, cfg.mesh_fsdp, dcn=cfg.mesh_dcn)
+        n_dev = self.mesh.size
+        if cfg.batch_size % (n_dev * cfg.grad_accum) != 0:
+            raise ValueError(
+                f"batch_size ({cfg.batch_size}) must be divisible by "
+                f"mesh size x grad_accum ({n_dev} devices x "
+                f"{cfg.grad_accum}); adjust --batch_size / --mesh_data / "
+                f"--grad_accum")
+        self.device = resolve_device(rank_device(device))
+        self.rank = self.mesh.rank
 
         if cfg.debug_nans:
             torch.autograd.set_detect_anomaly(True)
 
-        print(f"learning rate {cfg.learning_rate} "
-              f"sampling frequency : {cfg.sampling_frequency}")
-        print(float32_setting(cfg))
-        print("cuDNN deterministic algorithms while training")
+        self.say(f"learning rate {cfg.learning_rate} "
+                 f"sampling frequency : {cfg.sampling_frequency}")
+        self.say(float32_setting(cfg))
+        self.say("cuDNN deterministic algorithms while training")
+        if n_dev > 1:
+            self.say(f"mesh dcn x data x fsdp = {cfg.mesh_dcn} x "
+                     f"{self.mesh.data} x {cfg.mesh_fsdp} over {n_dev} "
+                     f"processes; {cfg.batch_size // n_dev} rows each")
 
         self.log_path = os.path.join(cfg.log_dir, cfg.model_name)
         os.makedirs(self.log_path, exist_ok=True)
@@ -164,51 +180,65 @@ class Trainer:
                                    os.path.join(cfg.frame_cache, "val"),
                                    build_if_missing=True)
 
-        self.train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
-                                   device=self.device,
-                                   num_workers=cfg.num_workers,
-                                   num_worker_procs=cfg.num_worker_procs,
-                                   prefetch=cfg.prefetch, seed=cfg.seed)
-        self.val_loader = Loader(val_ds, cfg.batch_size, shuffle=True,
-                                 device=self.device,
-                                 num_workers=max(2, cfg.num_workers // 2),
-                                 prefetch=1, seed=cfg.seed, infinite=True)
+        # each rank builds its rows of every global batch
+        mesh = self.mesh if n_dev > 1 else None
+        self.train_loader = Loader(
+            train_ds, cfg.batch_size, shuffle=True, device=self.device,
+            num_workers=cfg.num_workers,
+            num_worker_procs=cfg.num_worker_procs, prefetch=cfg.prefetch,
+            seed=cfg.seed, rows=None if mesh is None else process_local_rows(
+                mesh, cfg.batch_size, cfg.grad_accum))
+        self.val_loader = Loader(
+            val_ds, cfg.batch_size, shuffle=True, device=self.device,
+            num_workers=max(2, cfg.num_workers // 2), prefetch=1,
+            seed=cfg.seed, infinite=True,
+            rows=None if mesh is None else process_local_rows(
+                mesh, cfg.batch_size))
         self.val_iter = iter(self.val_loader)
 
         steps_per_epoch = cfg.steps_per_epoch or len(self.train_loader)
         self.steps_per_epoch = min(steps_per_epoch, len(self.train_loader))
         self.num_total_steps = self.steps_per_epoch * cfg.num_epochs
 
+        # every rank loads the same weights; then the state is placed on
+        # the mesh (under fsdp each rank keeps its shard)
         self.state = create_train_state(self.bundle, self.steps_per_epoch)
         self._init_encoders()
         self._load_initial_weights()
         self._load_generator()
+        self.state = shard_train_state(self.state, self.bundle, self.mesh)
 
-        self.train_step = build_train_step(self.bundle)
+        self.train_step = build_train_step(self.bundle, self.mesh)
         self.eval_step = build_eval_step(self.bundle,
-                                         with_images=cfg.log_images)
-        self.disc_step = (build_disc_step(self.bundle)
+                                         with_images=cfg.log_images,
+                                         mesh=self.mesh)
+        self.disc_step = (build_disc_step(self.bundle, self.mesh)
                           if cfg.adversarial_prior else None)
 
         self.logger = MetricLogger(
             cfg.log_dir, cfg.model_name, use_wandb=cfg.wandb,
             jsonl=cfg.log_jsonl, config=cfg.__dict__,
-            total_steps=self.num_total_steps)
-        self.profiler = Profiler(cfg.profile_dir)
+            total_steps=self.num_total_steps, rank=self.rank)
+        self.profiler = Profiler(cfg.profile_dir if self.rank == 0 else None)
 
-        print("Training model named:\n  ", cfg.model_name)
-        print("Models and logs are saved to:\n  ", cfg.log_dir)
+        self.say("Training model named:\n  ", cfg.model_name)
+        self.say("Models and logs are saved to:\n  ", cfg.log_dir)
         name = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "cpu")
-        print("Training is using:\n  ", f"{self.device} ({name})")
-        print(f"There are {len(train_ds)} training items and "
-              f"{len(val_ds)} validation items\n")
+        self.say("Training is using:\n  ", f"{self.device} ({name})")
+        self.say(f"There are {len(train_ds)} training items and "
+                 f"{len(val_ds)} validation items\n")
 
         self._save_opts()
         self.ckpt_dir = os.path.join(self.log_path, "models", "checkpoints")
         self._saved_step = None
         self.epoch = 0
         self.step = 0
+
+    def say(self, *args):
+        """print, on rank 0 only."""
+        if self.rank == 0:
+            print(*args)
 
     # ------------------------------------------------------------------
     def _init_encoders(self):
@@ -218,7 +248,7 @@ class Trainer:
         seeded random init."""
         cfg = self.cfg
         if cfg.weights_init != "pretrained":
-            print(f"weights_init={cfg.weights_init}: random encoder init")
+            self.say(f"weights_init={cfg.weights_init}: random encoder init")
             return
         path = ck.locate_imagenet_weights(cfg.num_layers,
                                           cfg.imagenet_weights)
@@ -229,8 +259,8 @@ class Trainer:
                          ck.import_torchvision_resnet(path,
                                                       cfg.num_pose_frames))
             loaded.append("pose_encoder")
-        print(f"weights_init=pretrained: ImageNet resnet{cfg.num_layers} "
-              f"from {path} -> {', '.join(loaded)}")
+        self.say(f"weights_init=pretrained: ImageNet resnet{cfg.num_layers} "
+                 f"from {path} -> {', '.join(loaded)}")
 
     def _load_initial_weights(self):
         folder = self.cfg.load_weights_folder
@@ -239,8 +269,8 @@ class Trainer:
         kind = ck.load_weights(self.bundle, folder, self.state,
                                self.cfg.models_to_load)
         if kind == "checkpoint":
-            print(f"restored checkpoint from {folder} "
-                  f"(step {self.state.step})")
+            self.say(f"restored checkpoint from {folder} "
+                     f"(step {self.state.step})")
 
     def _load_generator(self):
         """The GAN prior's generator from ``generator_weights``, after any
@@ -251,12 +281,15 @@ class Trainer:
             return
         if cfg.generator_weights:
             ck.load_generator(self.bundle, cfg.generator_weights)
-            print(f"GAN prior: generator from {cfg.generator_weights}")
+            self.say(f"GAN prior: generator from {cfg.generator_weights}")
         else:
-            print("GAN prior: no --generator_weights; the generator keeps "
-                  "its seeded random weights unless a checkpoint set them")
+            self.say("GAN prior: no --generator_weights; the generator "
+                     "keeps its seeded random weights unless a checkpoint "
+                     "set them")
 
     def _save_opts(self):
+        if self.rank != 0:
+            return
         models_dir = os.path.join(self.log_path, "models")
         os.makedirs(models_dir, exist_ok=True)
         with open(os.path.join(models_dir, "opt.json"), "w") as f:
@@ -285,7 +318,7 @@ class Trainer:
 
     def save(self):
         """Checkpoint the current step (once: an epoch's end may fall on a
-        step that ckpt_frequency already saved)."""
+        step that ckpt_frequency already saved); every rank calls it."""
         if self._saved_step != self.state.step:
             ck.save_checkpoint(self.ckpt_dir, self.bundle, self.state,
                                self.cfg)
@@ -300,7 +333,7 @@ class Trainer:
 
     def run_epoch(self, start_batch: int = 0):
         cfg = self.cfg
-        print("Training")
+        self.say("Training")
         for batch_idx, batch in enumerate(
                 self.train_loader.epoch(self.epoch, start_batch=start_batch),
                 start=start_batch):
@@ -330,19 +363,26 @@ class Trainer:
 
     def val(self):
         """One validation batch, with the depth metrics when the dataset
-        ships ground truth."""
+        ships ground truth; over a mesh every rank runs its rows, and the
+        losses and metrics are the global batch's."""
         batch = dict(next(self.val_iter))
         depth_gt = batch.pop("depth_gt", None)
         # a generator of the step: validation never draws from the
         # training stream, so a resumed run matches an uninterrupted one
         gen = noise_generator(self.cfg.seed + 2, self.step, self.device)
-        losses, outputs = self.eval_step(batch, generator=gen)
+        with full_params(self.state):
+            losses, outputs = self.eval_step(batch, generator=gen)
         scalars = {k: float(v) for k, v in losses.items()}
         if depth_gt is not None:
             from ..eval.metrics import train_time_depth_metrics
 
             _, depth = disp_to_depth(outputs["disp"][0][..., 0],
                                      self.cfg.min_depth, self.cfg.max_depth)
+            if self.mesh.size > 1:
+                # the whole batch's metrics (median scaling over all rows)
+                group = self.mesh.group
+                depth = torch.cat(all_gather(depth, group))
+                depth_gt = torch.cat(all_gather(depth_gt, group))
             scalars.update(train_time_depth_metrics(
                 depth.cpu().numpy(), depth_gt.cpu().numpy()))
         self.logger.log_scalars("val", scalars, self.step)

@@ -8,17 +8,27 @@ the bundle) and the Adam moments in the optimizer, which the step updates
 in place, and ``TrainState`` holds the optimizer with the step counter
 that the schedule and the automask noise read, and with
 ``adversarial_prior`` the discriminator's own Adam.
+
+Over a mesh with fsdp > 1 (the reference's ``train_state_shardings``)
+``ShardedParams`` keeps this rank's 1/fsdp of the main parameters, and the
+Adam moments are those of that shard alone; BatchNorm statistics, the GAN
+prior's networks, the discriminator's Adam and the step stay replicated.
+Adam is elementwise, so a shard's update is the same as the unsharded
+one's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Callable, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
+from torch import nn
 
 from ..config import Options
+from ..parallel.mesh import Mesh, all_gather_into
 from .bundle import ModelBundle
 
 Schedule = Callable[[int], float]
@@ -56,27 +66,223 @@ def make_disc_optimizer(params: Iterable[torch.nn.Parameter],
                             betas=(cfg.b1, cfg.b2), eps=1e-8)
 
 
+class ShardedParams:
+    """fsdp: the main parameters laid end to end in one vector of
+    ``numel`` elements (zero-padded to a multiple of fsdp) and cut into
+    fsdp equal shards. This rank keeps shard ``mesh.fsdp_index`` as
+    ``shard``, the one parameter its Adam updates. The modules' parameters
+    are views into the full vector, whose storage ``gather()`` allocates
+    and fills with every rank's shard (an all-gather over the fsdp group)
+    and ``release()`` frees; between steps only the shard and its Adam
+    moments are held, about 1/fsdp of the bytes."""
+
+    def __init__(self, params: Iterable[nn.Parameter], mesh: Mesh):
+        self.params = list(params)
+        self.mesh = mesh
+        first = self.params[0]
+        if any(p.dtype != first.dtype or p.device != first.device
+               for p in self.params):
+            raise ValueError("fsdp shards parameters of one dtype on one "
+                             "device")
+        self.total = sum(p.numel() for p in self.params)
+        self.shard_numel = -(-self.total // mesh.fsdp)
+        self.numel = self.shard_numel * mesh.fsdp
+        self.flat = torch.zeros(self.numel, dtype=first.dtype,
+                                device=first.device)
+        offset = 0
+        with torch.no_grad():
+            for p in self.params:
+                view = self.flat[offset:offset + p.numel()]
+                view.copy_(p.reshape(-1))
+                p.data = view.view_as(p)
+                offset += p.numel()
+        self.shard = nn.Parameter(self._own(self.flat).clone())
+        self.gathered = True
+
+    def _own(self, flat: torch.Tensor) -> torch.Tensor:
+        i = self.mesh.fsdp_index
+        return flat[i * self.shard_numel:(i + 1) * self.shard_numel]
+
+    def _chunks(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        return list(flat.view(self.mesh.fsdp, self.shard_numel).unbind(0))
+
+    def gather(self):
+        """The full parameters, from every rank's shard (no-op when they
+        are gathered)."""
+        if self.gathered:
+            return
+        self.flat.untyped_storage().resize_(
+            self.numel * self.flat.element_size())
+        all_gather_into(self._chunks(self.flat), self.shard.detach(),
+                        self.mesh.fsdp_group)
+        self.gathered = True
+
+    def release(self):
+        """Free the full parameters and their gradients."""
+        for p in self.params:
+            p.grad = None
+        self.flat.untyped_storage().resize_(0)
+        self.gathered = False
+
+    def scatter(self):
+        """Take this rank's shard from the full parameters, after new
+        values were loaded into them."""
+        with torch.no_grad():
+            self.shard.copy_(self._own(self.flat))
+
+    def step(self, optimizer: torch.optim.Optimizer, flat_grad: torch.Tensor):
+        """One update of the shard by ``optimizer`` from the full gradient
+        ``flat_grad`` (averaged over the mesh, ``numel`` long); then the
+        full parameters are freed."""
+        self.shard.grad = self._own(flat_grad)
+        optimizer.step()
+        self.shard.grad = None
+        self.release()
+
+    def optimizer_state_dict(self, optimizer: torch.optim.Optimizer
+                             ) -> dict:
+        """``optimizer``'s state (Adam over ``shard``) as the state_dict of
+        Adam over the parameters one by one, the checkpoints' format: the
+        moments gathered from every rank (a collective) and cut per
+        parameter."""
+        saved = optimizer.state_dict()
+        group = dict(saved["param_groups"][0],
+                     params=list(range(len(self.params))))
+        own = saved["state"].get(0)
+        state: Dict[int, dict] = {}
+        if own:
+            full = {}
+            for key in ("exp_avg", "exp_avg_sq"):
+                buf = own[key].new_empty(self.numel)
+                all_gather_into(self._chunks(buf), own[key],
+                                self.mesh.fsdp_group)
+                full[key] = buf
+            offset = 0
+            for i, p in enumerate(self.params):
+                n = p.numel()
+                state[i] = {"step": own["step"].clone(),
+                            **{key: buf[offset:offset + n].view_as(p).clone()
+                               for key, buf in full.items()}}
+                offset += n
+        return {"state": state, "param_groups": [group]}
+
+    def load_optimizer_state_dict(self, optimizer: torch.optim.Optimizer,
+                                  saved: dict):
+        """Load a state_dict of Adam over the parameters one by one (the
+        checkpoints' format) into ``optimizer``, this rank's shard of each
+        moment."""
+        group = dict(saved["param_groups"][0], params=[0])
+        state = {}
+        if saved["state"]:
+            entries = [saved["state"][i] for i in range(len(self.params))]
+            step = entries[0]["step"]
+            if any(float(e["step"]) != float(step) for e in entries):
+                raise ValueError("the parameters' Adam steps differ; fsdp "
+                                 "keeps one step for all of them")
+            own = {"step": step.clone()}
+            for key in ("exp_avg", "exp_avg_sq"):
+                full = entries[0][key].new_zeros(self.numel)
+                torch.cat([e[key].reshape(-1) for e in entries],
+                          out=full[:self.total])
+                own[key] = self._own(full).clone()
+            state[0] = own
+        optimizer.load_state_dict({"state": state, "param_groups": [group]})
+
+
 @dataclasses.dataclass
 class TrainState:
     """``step`` counts optimizer updates; ``schedule(step)`` is the rate of
     the next one. ``disc_optimizer`` is the discriminator's Adam, or
-    None without one."""
+    None without one. ``mesh`` is the run's ``parallel.mesh.Mesh`` (None
+    on one device); under fsdp ``shards`` holds this rank's shard of the
+    main parameters, and ``optimizer`` is Adam over that shard."""
 
     step: int
     optimizer: torch.optim.Optimizer
     schedule: Schedule
     disc_optimizer: Optional[torch.optim.Optimizer] = None
+    mesh: Optional[Mesh] = None
+    shards: Optional[ShardedParams] = None
 
 
-def create_train_state(bundle: ModelBundle,
-                       steps_per_epoch: int = 1) -> TrainState:
+@contextlib.contextmanager
+def full_params(state: Optional[TrainState]):
+    """The full main parameters while the body runs: under fsdp gathered,
+    and freed again after if they were not gathered before; otherwise
+    (no ``shards``, or no state) nothing to do."""
+    shards = getattr(state, "shards", None)
+    if shards is None or shards.gathered:
+        yield
+        return
+    shards.gather()
+    try:
+        yield
+    finally:
+        shards.release()
+
+
+def optimizer_state_dict(state: TrainState) -> dict:
+    """The main Adam's state_dict in the checkpoints' format (Adam over
+    the parameters one by one), gathered under fsdp (a collective)."""
+    if state.shards is None:
+        return state.optimizer.state_dict()
+    return state.shards.optimizer_state_dict(state.optimizer)
+
+
+def load_optimizer_state_dict(state: TrainState, saved: dict):
+    """Load a state_dict in the checkpoints' format into the main Adam
+    (this rank's shard of it under fsdp)."""
+    if state.shards is None:
+        state.optimizer.load_state_dict(saved)
+    else:
+        state.shards.load_optimizer_state_dict(state.optimizer, saved)
+
+
+def held_bytes(bundle: ModelBundle, state: TrainState) -> Dict[str, int]:
+    """Bytes of the main parameters and of each Adam moment that this
+    process holds now, and their totals over the whole model."""
+    params = bundle.main_parameters()
+    total = sum(p.numel() * p.element_size() for p in params)
+    moments = [st for st in state.optimizer.state.values() if st]
+    out = {"total": total}
+    if state.shards is None:
+        out["parameters"] = total
+    else:
+        out["parameters"] = (state.shards.flat.untyped_storage().nbytes()
+                             + state.shards.shard.nbytes)
+    for key in ("exp_avg", "exp_avg_sq"):
+        out[key] = sum(st[key].nbytes for st in moments)
+    return out
+
+
+def create_train_state(bundle: ModelBundle, steps_per_epoch: int = 1,
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """A fresh state at step 0: Adam over ``bundle.main_parameters()``
     (the reference's ``params``: the frozen generator and the
     discriminator are not in it) and, with a discriminator, its own
-    Adam."""
+    Adam; placed on ``mesh`` (``shard_train_state``) when given."""
     schedule = lr_schedule(bundle.cfg, steps_per_epoch)
     optimizer = make_optimizer(bundle.main_parameters(), schedule(0))
     disc = bundle.discriminator
-    return TrainState(step=0, optimizer=optimizer, schedule=schedule,
-                      disc_optimizer=None if disc is None else
-                      make_disc_optimizer(disc.parameters(), bundle.cfg))
+    state = TrainState(step=0, optimizer=optimizer, schedule=schedule,
+                       disc_optimizer=None if disc is None else
+                       make_disc_optimizer(disc.parameters(), bundle.cfg))
+    return state if mesh is None else shard_train_state(state, bundle, mesh)
+
+
+def shard_train_state(state: TrainState, bundle: ModelBundle,
+                      mesh: Mesh) -> TrainState:
+    """Place ``state`` on ``mesh``: with fsdp > 1 the main parameters
+    become ``ShardedParams`` (freed to this rank's shard) and the main Adam
+    one over that shard, carrying over whatever moments ``state`` had
+    (a restored checkpoint's); -> ``state``, changed in place."""
+    state.mesh = mesh
+    if mesh.fsdp == 1 or state.shards is not None:
+        return state
+    saved = state.optimizer.state_dict()
+    shards = ShardedParams(bundle.main_parameters(), mesh)
+    optimizer = make_optimizer([shards.shard], state.schedule(state.step))
+    shards.load_optimizer_state_dict(optimizer, saved)
+    state.optimizer, state.shards = optimizer, shards
+    shards.release()
+    return state

@@ -39,10 +39,11 @@ the ``torch.Generator`` of the automask noise.
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..data.pipeline import process_local_rows
 from ..ops import geometry as G
 from ..ops import losses as L
 from ..ops.augment_device import batch_augment
@@ -51,8 +52,10 @@ from ..ops.kernels import (grid_sample_fast, reproj_loss_op, warp_op,
 from ..ops.kernels.warp import INV255
 from ..ops.resize import image_pyramid, resize_bilinear
 from ..ops.warp import grid_sample
+from ..parallel.mesh import (Mesh, all_reduce_sum, average_gradients,
+                             mean_over_ranks, share_batch_statistics)
 from .bundle import ModelBundle
-from .state import TrainState
+from .state import TrainState, full_params
 
 
 def _f32(x):
@@ -154,7 +157,9 @@ def predict_poses(bundle: ModelBundle, aug: Dict[int, torch.Tensor],
 def forward_and_loss(bundle: ModelBundle, batch, train: bool = False,
                      with_images: bool = False,
                      generator: Optional[torch.Generator] = None,
-                     noise: Optional[Dict[int, torch.Tensor]] = None):
+                     noise: Optional[Dict[int, torch.Tensor]] = None,
+                     mesh: Optional[Mesh] = None,
+                     noise_rows: Optional[Tuple[int, int, int]] = None):
     """Depth, pose, view synthesis and the monodepth2 loss for one batch.
 
     Args:
@@ -175,9 +180,17 @@ def forward_and_loss(bundle: ModelBundle, batch, train: bool = False,
         pass the reference package's draw), S being the number of source
         frames and (h, w) the full size, or the scale's own under
         ``v1_multiscale``.
+      mesh: the run's ``parallel.mesh.Mesh`` when ``batch`` is this rank's
+        share of a global batch: the GAN prior's silog term is then taken
+        over the global batch (BatchNorm's statistics follow the modules'
+        ``stats_group``).
+      noise_rows: (start, stop, global_batch): the rows of the global
+        batch that ``batch`` holds; the noise drawn from ``generator`` is
+        the global batch's, cut to them (``losses.tie_break_noise``).
 
     Returns (total_loss, (losses, outputs)); outputs['disp'] maps each
-    scale to its (B, h, w, 1) disparity.
+    scale to its (B, h, w, 1) disparity. The losses are this batch's; over
+    a mesh, their mean over the ranks is the global batch's.
     """
     if train and with_images:
         raise ValueError("with_images is for evaluation only")
@@ -235,6 +248,8 @@ def forward_and_loss(bundle: ModelBundle, batch, train: bool = False,
                    **{f"pose/{f}": p[0] for f, p in pose_params.items()})
 
     loss_kernel = cfg.use_pallas_loss and not cfg.no_ssim
+    silog_reduce = (None if mesh is None or mesh.size == 1
+                    else lambda sums: all_reduce_sum(sums, mesh.group))
 
     def reproj_fn(pred_p, tgt_p):
         if loss_kernel:
@@ -322,7 +337,8 @@ def forward_and_loss(bundle: ModelBundle, batch, train: bool = False,
             identity = identity_losses(s)
         to_opt, automask = L.min_reprojection(
             reproj, identity, noise=None if noise is None else noise[s],
-            generator=generator, avg_reprojection=cfg.avg_reprojection)
+            generator=generator, avg_reprojection=cfg.avg_reprojection,
+            noise_rows=noise_rows)
         if automask is not None and with_images:
             outputs[f"automask/{s}"] = automask
         min_loss = torch.mean(to_opt)
@@ -333,7 +349,7 @@ def forward_and_loss(bundle: ModelBundle, batch, train: bool = False,
         losses[f"loss/{s}"] = loss_s
         total_loss = total_loss + loss_s
         if prior is not None:
-            gan = L.silog_loss(prior, disp_full)
+            gan = L.silog_loss(prior, disp_full, silog_reduce)
             losses[f"gan_loss/{s}"] = gan
             gan_total = gan_total + gan
     total_loss = total_loss / cfg.num_scales
@@ -359,7 +375,7 @@ def global_norm(tensors) -> torch.Tensor:
         [torch.linalg.vector_norm(t) for t in tensors]))
 
 
-def build_train_step(bundle: ModelBundle):
+def build_train_step(bundle: ModelBundle, mesh: Optional[Mesh] = None):
     """-> step(state, batch, generator=None, noise=None) -> losses: one
     training step of ``state`` (forward with BatchNorm on batch statistics,
     loss, backward, one Adam update; ``state`` and the bundle are updated in
@@ -378,21 +394,44 @@ def build_train_step(bundle: ModelBundle):
     ``torch.Generator``; the GAN prior's network is ``bundle.generator``).
     The update is ``state.optimizer``'s (``create_train_state(bundle)``),
     at the learning rate ``state.schedule(state.step)``.
+
+    Over a ``mesh`` of processes ``batch`` is this rank's rows of the
+    global batch (``data.pipeline.process_local_rows``: its share of each
+    microbatch), ``noise`` is the global batch's, and the step computes
+    what one device computes on the global batch: BatchNorm on the global
+    statistics, the noise of the global draw, the gradients averaged over
+    the ranks before the update, and losses and ``grad_norm`` global,
+    the same on every rank. Under fsdp (``state.shards``) the full
+    parameters are gathered for the step, Adam updates this rank's shard,
+    and the full parameters are freed again.
     """
     cfg = bundle.cfg
     accum = cfg.grad_accum
+    world = 1 if mesh is None else mesh.size
+    if mesh is not None and world > 1:
+        share_batch_statistics(bundle, mesh.group)
 
     def step(state: TrainState, batch, generator=None, noise=None):
-        if accum < 1 or batch["color"].shape[0] % accum:
+        b = batch["color"].shape[0]
+        if accum < 1 or b % accum:
             raise ValueError(f"grad_accum {accum} does not divide the batch "
-                             f"of {batch['color'].shape[0]}")
+                             f"of {b}")
         opt = state.optimizer
         if noise is None and generator is None:
             generator = noise_generator(cfg.seed, state.step,
                                         batch["color"].device)
+        if noise is not None and world > 1:
+            rows = torch.from_numpy(process_local_rows(mesh, b * world,
+                                                       accum))
+            noise = {s: t[rows.to(t.device)] for s, t in noise.items()}
+        shards = state.shards
+        if shards is not None:
+            shards.gather()
         params = bundle.main_parameters()
-        opt.zero_grad(set_to_none=True)
-        n = batch["color"].shape[0] // accum
+        for p in params:
+            p.grad = None
+        n = b // accum
+        noise_rows = _rank_rows(mesh, n)
         per_micro = []
         for i in range(accum):
             part = slice(i * n, (i + 1) * n)
@@ -401,25 +440,45 @@ def build_train_step(bundle: ModelBundle):
                            else {s: t[part] for s, t in noise.items()})
             total, (losses, _) = forward_and_loss(
                 bundle, micro, train=True, generator=generator,
-                noise=micro_noise)
+                noise=micro_noise, mesh=mesh, noise_rows=noise_rows)
             total.backward()
             per_micro.append({k: v.detach() for k, v in losses.items()})
+        flat = None
+        if mesh is not None:
+            flat = average_gradients(
+                params, mesh, numel=None if shards is None else shards.numel,
+                zeros_for_missing=shards is not None)
         if accum > 1:
             for p in params:
                 p.grad.div_(accum)
         losses = {k: torch.stack([m[k] for m in per_micro]).mean()
                   for k in per_micro[0]}
+        if mesh is not None:
+            losses = mean_over_ranks(losses, mesh)
         losses["grad_norm"] = global_norm([p.grad for p in params])
         for group in opt.param_groups:
             group["lr"] = state.schedule(state.step)
-        opt.step()
+        if shards is None:
+            opt.step()
+        else:
+            shards.step(opt, flat)
         state.step += 1
         return losses
 
     return step
 
 
-def build_disc_step(bundle: ModelBundle):
+def _rank_rows(mesh: Optional[Mesh], n: int):
+    """(start, stop, global rows) of this rank's ``n`` rows of a global
+    (micro)batch of ``n * mesh.size`` (``Mesh.batch_slices``); None on one
+    process."""
+    if mesh is None or mesh.size == 1:
+        return None
+    rows = mesh.batch_slices(n * mesh.size)[0]
+    return rows.start, rows.stop, n * mesh.size
+
+
+def build_disc_step(bundle: ModelBundle, mesh: Optional[Mesh] = None):
     """-> step(state, batch, real=None) -> {'disc_loss': ...}: one update
     of the PatchGAN discriminator by ``state.disc_optimizer`` (the
     reference trainer's discriminator pass as the reference package fixes
@@ -431,13 +490,15 @@ def build_disc_step(bundle: ModelBundle):
     - 1)^2) + mean(D(fake)^2)). Run it after the training step, on the
     same batch. It draws no random numbers, so it takes no
     ``torch.Generator`` (``bundle.generator`` is the GAN prior's
-    network)."""
+    network). Over a ``mesh`` each rank runs its rows, and the gradients
+    and the loss are averaged over the ranks (the discriminator's
+    instance norms need no statistics of other rows)."""
     disc = bundle.discriminator
     if disc is None:
         raise ValueError("build_disc_step needs adversarial_prior")
 
     def step(state: TrainState, batch, real=None):
-        with torch.no_grad():
+        with torch.no_grad(), full_params(state):
             color0 = _f32(batch["color"][:, 0])
             if real is None:
                 real = gan_prior(bundle, color0)
@@ -448,21 +509,38 @@ def build_disc_step(bundle: ModelBundle):
         opt = state.disc_optimizer
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        losses = {"disc_loss": loss.detach()}
+        if mesh is not None:
+            average_gradients(disc.parameters(), mesh)
+            losses = mean_over_ranks(losses, mesh)
         opt.step()
-        return {"disc_loss": loss.detach()}
+        return losses
 
     return step
 
 
-def build_eval_step(bundle: ModelBundle, with_images: bool = False):
+def build_eval_step(bundle: ModelBundle, with_images: bool = False,
+                    mesh: Optional[Mesh] = None):
     """-> step(batch, generator=None, noise=None) -> (losses, outputs): the
-    validation forward with BatchNorm on its running statistics."""
+    validation forward with BatchNorm on its running statistics. Over a
+    ``mesh`` ``batch`` is this rank's contiguous block of the global
+    batch, the noise drawn from ``generator`` the global batch's, and the
+    losses the global batch's (the outputs are this rank's rows; ``noise``,
+    when given, is the global batch's). Under fsdp the caller gathers the
+    parameters (``train.state.full_params``)."""
 
     def step(batch, generator=None, noise=None):
+        b = batch["color"].shape[0]
+        rows = _rank_rows(mesh, b)
+        if noise is not None and rows is not None:
+            noise = {s: t[rows[0]:rows[1]] for s, t in noise.items()}
         with torch.inference_mode():
             _, (losses, outputs) = forward_and_loss(
                 bundle, batch, train=False, with_images=with_images,
-                generator=generator, noise=noise)
+                generator=generator, noise=noise, mesh=mesh,
+                noise_rows=rows)
+            if mesh is not None:
+                losses = mean_over_ranks(losses, mesh)
         return losses, outputs
 
     return step
