@@ -102,9 +102,26 @@ Phases, each timed on its own line:
    bit-identical after each step, fsdp's steps bit-equal to
    ``mesh_data=2``'s, a checkpoint at step 2 and a resume from it
    bit-equal; with each rank's ms per step, collectives, launches, peak
-   memory and the bytes of parameters and Adam moments it holds.
+   memory and the bytes of parameters and Adam moments it holds;
+12. files and serving without PIL: the native host routines of the image
+   codec (``csrc/image_host.cpp``, built with the kernels) against their
+   numpy versions bit for bit, the PNG unfilter on ``encode_png`` files of
+   every colour type read with each forced filter type, mixed and adaptive
+   ones at 1280x1024 and ragged sizes, the LANCZOS passes on the feeds'
+   shapes, with host ms per frame of each route; a lung tree of 1280x1024
+   PNGs, its split files (``data.make_splits``), ``cli.build_frame_cache``,
+   ``cli.train`` for two steps from the files (``--log_images``, read back)
+   and two from the cache, the batches bit-equal, frames/s of each; the
+   HTTP front end with a bfloat16 and a float32 engine, 16 concurrent PNG
+   POSTs each answered with the engine's disparity of its frame, p50 and
+   p99 ms; ``export_artifact`` / ``load_artifact`` against the engine
+   (float32 within 1e-6, bfloat16 within phase 4's bound);
+   ``cli.test_simple`` on phase 7's checkpoint; ``cli.export_gt_depth`` on
+   an eigen_benchmark tree of 16-bit PNGs; ``--eval_split benchmark``'s
+   PNGs read back.
 
-It prints one JSON line of kernel records, then, as its last line, the
+It prints one JSON line of the host routines' records and the HTTP
+latencies, one JSON line of kernel records, then, as its last line, the
 device record. Any failure ends it with a non-zero exit code; without a
 CUDA device it exits non-zero at once.
 """
@@ -124,7 +141,7 @@ import tempfile
 import threading
 import time
 
-WATCHDOG_S = 600
+WATCHDOG_S = 900
 B, C, H, W = 12, 3, 192, 640
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -2721,6 +2738,488 @@ def phase_mesh(device="cuda"):
     return total
 
 
+# Phase 12: files and serving without PIL. Host routines of the image
+# codec (csrc/image_host.cpp), held to their numpy versions bit for bit.
+HOST_ROUTINES = {
+    "png_unfilter": dict(
+        replaces="PIL's PNG decoder (PngImagePlugin), its unfilter"),
+    "resample_horizontal_u8": dict(
+        replaces="PIL's Image.resize LANCZOS (Resample.c), horizontal pass"),
+    "resample_vertical_u8": dict(
+        replaces="PIL's Image.resize LANCZOS (Resample.c), vertical pass"),
+}
+HOST_SOURCE = "unsupervised_pose_estimation_tpu_torch/csrc/image_host.cpp"
+FRAME_H, FRAME_W = 1024, 1280   # the lung frames' size
+FILE_FRAMES = 44                # one sequence: 28 train and 14 val lines
+FILE_PICTURES = 8               # distinct pictures among the frames
+# (h, w) -> (out_h, out_w): SCARED after its crop, KITTI, 480x640, and
+# upscaling, odd, tiny and unchanged sizes
+LANCZOS_SHAPES = [((960, 1280), (192, 640)), ((375, 1242), (192, 640)),
+                  ((480, 640), (192, 640)), ((32, 32), (64, 48)),
+                  ((7, 13), (5, 29)), ((1, 5), (3, 2)), ((20, 30), (20, 30))]
+HTTP_REQUESTS = 16
+
+
+def lung_picture(k, h=FRAME_H, w=FRAME_W):
+    """A smooth RGB texture sliding 2 px a frame, with noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(100 + k)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    pix = np.empty((h, w, 3), np.float32)
+    for c in range(3):
+        pix[..., c] = 127.5 + 100 * np.sin(0.02 * (xs + 2 * k)
+                                           + 0.015 * ys * (c + 1))
+    pix += rng.normal(0, 6, (h, w, 3))
+    return np.clip(pix, 0, 255).astype(np.uint8)
+
+
+def as_palette(data):
+    """An 8-bit grey PNG as a palette PNG of the same indices (colour type
+    3 with a 256-entry PLTE): the same unfilter at one byte a pixel."""
+    import struct
+    import zlib
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    ihdr = bytearray(data[16:29])
+    ihdr[9] = 3
+    plte = bytes((i * 7 + c * 85) % 256 for i in range(256)
+                 for c in range(3))
+    return data[:8] + chunk(b"IHDR", bytes(ihdr)) + chunk(b"PLTE", plte) + \
+        data[33:]
+
+
+def host_ms(fn, repeat):
+    start = time.perf_counter()
+    for _ in range(repeat):
+        out = fn()
+    return 1e3 * (time.perf_counter() - start) / repeat, out
+
+
+def check_host_routines():
+    """The native unfilter against numpy on encode_png files of every
+    colour type read, with each forced filter type, mixed per-row types and
+    the adaptive choice, at 1280x1024 (RGB every type; the others mixed)
+    and at ragged sizes; the native LANCZOS passes against numpy on
+    LANCZOS_SHAPES; host ms per frame of each route. -> host records."""
+    import numpy as np
+
+    from unsupervised_pose_estimation_tpu_torch.data import png, resample
+    from unsupervised_pose_estimation_tpu_torch.ops.kernels import _lib
+
+    _lib.reset_counts()
+    rng = np.random.default_rng(12)
+    rgb = lung_picture(0)
+
+    def layouts(pix):
+        grey = pix[..., 1]
+        return {"grey": grey, "grey_alpha": pix[..., :2], "rgb": pix,
+                "rgba": np.concatenate([pix, pix[..., :1]], -1),
+                "palette": grey,
+                "grey16": grey.astype(np.uint16) * 257 + pix[..., 0]}
+
+    files = []
+    for size in ((FRAME_H, FRAME_W), (37, 53), (1, 1), (5, 3)):
+        pix = rgb[:size[0], :size[1]]
+        for name, arr in layouts(pix).items():
+            big = size == (FRAME_H, FRAME_W)
+            kinds = ([0, 1, 2, 3, 4, None] if not big or name == "rgb"
+                     else []) + [rng.integers(0, 5, size[0])]
+            for kind in kinds:
+                data = png.encode_png(arr, filter=kind, level=1)
+                if name == "palette":
+                    data = as_palette(data)
+                files.append((name, size, data))
+    worst = 0
+    for name, size, data in files:
+        got = png.decode_png(data, native=True)
+        want = png.decode_png(data)
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"native unfilter differs: {name} {size}")
+    frame = png.encode_png(rgb)  # the adaptive filters, zlib level 6
+    native_ms, _ = host_ms(lambda: png.decode_png(frame, native=True), 5)
+    numpy_ms, _ = host_ms(lambda: png.decode_png(frame), 1)
+    print(f"  unfilter: {len(files)} files bit-equal (6 colour types x "
+          f"forced, mixed and adaptive filters; 1280x1024 and ragged); "
+          f"decode of a 1280x1024 RGB frame {native_ms:.2f} ms native, "
+          f"{numpy_ms:.2f} ms numpy (host)", flush=True)
+    records = {"png_unfilter": dict(ms=native_ms, numpy_ms=numpy_ms)}
+    resize = {}
+    for (h, w), (oh, ow) in LANCZOS_SHAPES:
+        img = rgb[:h, :w] if h <= FRAME_H and w <= FRAME_W else \
+            lung_picture(1, h, w)
+        n_ms, got = host_ms(
+            lambda: resample.resize_lanczos(img, oh, ow, native=True), 5)
+        p_ms, want = host_ms(lambda: resample.resize_lanczos(img, oh, ow), 1)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"native LANCZOS differs at {(h, w)} -> "
+                                 f"{(oh, ow)}")
+        resize[f"{h}x{w}->{oh}x{ow}"] = (round(n_ms, 3), round(p_ms, 3))
+    print(f"  LANCZOS native vs numpy bit-equal; host ms per frame (native, "
+          f"numpy): {resize}", flush=True)
+    n_ms, p_ms = resize["960x1280->192x640"]
+    for name in ("resample_horizontal_u8", "resample_vertical_u8"):
+        records[name] = dict(ms=n_ms, numpy_ms=p_ms,
+                             shape="960x1280->192x640 (both passes)")
+    return records, _lib.host_counts()
+
+
+def check_file_training(root, device):
+    """A lung tree of FILE_FRAMES 1280x1024 PNGs (encode_png), its split
+    files (data.make_splits), cli.build_frame_cache, then cli.train for two
+    steps from the files (with --log_images) and two from the cache: the
+    batches bit-equal; -> the log directory of the first run."""
+    import numpy as np
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    from unsupervised_pose_estimation_tpu_torch.cli import build_frame_cache
+    from unsupervised_pose_estimation_tpu_torch.cli.train import main as train
+    from unsupervised_pose_estimation_tpu_torch.data.make_splits import \
+        write_split
+    from unsupervised_pose_estimation_tpu_torch.data.png import encode_png
+    from unsupervised_pose_estimation_tpu_torch.train import loop
+
+    lung = os.path.join(root, "lung")
+    os.makedirs(os.path.join(lung, "seq1"))
+    start = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        pictures = list(pool.map(lambda k: encode_png(lung_picture(k)),
+                                 range(FILE_PICTURES)))
+    for i in range(FILE_FRAMES):
+        with open(os.path.join(lung, "seq1", f"{i:010d}.png"), "wb") as f:
+            f.write(pictures[i % FILE_PICTURES])
+    split_dir = os.path.join(root, "splits")
+    write_split(lung, os.path.join(split_dir, "lung_files"),
+                val_fraction=1 / 3, suffix="")
+    print(f"  lung tree: {FILE_FRAMES} PNGs of {FRAME_W}x{FRAME_H} "
+          f"({sum(map(len, pictures)) / FILE_PICTURES / 2**20:.2f} MiB "
+          f"each) in {time.perf_counter() - start:.2f} s", flush=True)
+    args = TRAIN_ARGS + ["--batch_size", str(B), "--height", str(H),
+                         "--width", str(W), "--dataset", "endovis",
+                         "--split", "lung_files", "--split_dir", split_dir,
+                         "--data_path", lung, "--steps_per_epoch", "2"]
+    cache = os.path.join(root, "cache")
+    start = time.perf_counter()
+    stats = build_frame_cache.main(args + ["--frame_cache", cache],
+                                   device=device)
+    seconds = time.perf_counter() - start
+    rows = stats["train"]["rows"] + stats["val"]["rows"]
+    print(f"  cli.build_frame_cache: {rows} frames in {seconds:.2f} s "
+          f"({rows / seconds:.1f} frames/s decoded and resized, "
+          f"{FRAME_W}x{FRAME_H} -> {W}x{H})", flush=True)
+    runs = {}
+    for tag, extra in (("files", ["--log_images"]),
+                       ("cache", ["--frame_cache", cache])):
+        seen = []
+        undo = recording_steps(loop, seen)
+        try:
+            trainer = train(args + extra + ["--log_dir",
+                                             os.path.join(root, tag)],
+                            device=device)
+        finally:
+            undo()
+        if len(seen) != 2:
+            raise AssertionError(f"{tag}: {len(seen)} steps")
+        check_batches_against_host(seen, trainer.train_loader)
+        loader = trainer.train_loader
+        gap = seen[1][2] - seen[0][2]
+        wait = 1e3 * loader.wait_seconds / loader.batches
+        # the input pipeline alone: one more epoch of batches to the card
+        start = time.perf_counter()
+        batches = loader.epoch(1)
+        try:
+            n = sum(1 for _ in batches)
+        finally:
+            batches.close()
+        rate = n * B / (time.perf_counter() - start)
+        print(f"  cli.train from the {tag}: 2 steps, {B / gap:.1f} frames/s "
+              f"between the step starts (step 0 with the first validation), "
+              f"loader wait {wait:.1f} ms a batch, loss "
+              f"{float(seen[-1][3]['loss']):.6f}; the loader alone "
+              f"{rate:.1f} frames/s over {n} batches", flush=True)
+        runs[tag] = seen
+    for (step, a, _, _), (_, b, _, _) in zip(runs["files"], runs["cache"]):
+        for key in a:
+            if not torch.equal(a[key], b[key]):
+                raise AssertionError(f"step {step}: batch['{key}'] from the "
+                                     f"files differs from the cache's")
+    print("  batches from the files and from the cache bit-equal",
+          flush=True)
+    return lung, os.path.join(root, "files")
+
+
+def check_logged_images(log_dir):
+    """--log_images wrote 8-bit grey or RGB PNGs that decode_png reads
+    (the disparities at each scale's size)."""
+    import numpy as np
+
+    from unsupervised_pose_estimation_tpu_torch.data.png import read_png
+
+    step_dir = os.path.join(log_dir, "mdp", "images", "step_0")
+    names = sorted(os.listdir(step_dir))
+    shapes = set()
+    for name in names:
+        arr = read_png(os.path.join(step_dir, name), native=True)
+        if arr.dtype != np.uint8 or arr.ndim not in (2, 3) or \
+                (arr.ndim == 3 and arr.shape[-1] != 3):
+            raise AssertionError(f"{name}: {arr.shape} {arr.dtype}")
+        shapes.add(arr.shape)
+    if not names:
+        raise AssertionError("--log_images wrote no PNG")
+    print(f"  --log_images: {len(names)} PNGs read back, shapes "
+          f"{sorted(shapes)}", flush=True)
+
+
+def check_http(lung, device):
+    """The HTTP front end with a bf16 engine and a float32 engine:
+    HTTP_REQUESTS concurrent POSTs of 1280x1024 PNG frames; each answer
+    equal to the engine's disparity of the decoded frame in the batch that
+    served it (each engine call recorded) and the feed equal to the local
+    decode; -> {dtype: (p50 ms, p99 ms)}."""
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    from unsupervised_pose_estimation_tpu_torch.serve import (
+        InferenceEngine, MicroBatcher, decode_request, make_http_server)
+
+    names = sorted(os.listdir(os.path.join(lung, "seq1")))
+    bodies = []
+    for name in names[:HTTP_REQUESTS]:
+        with open(os.path.join(lung, "seq1", name), "rb") as f:
+            bodies.append(f.read())
+    feeds = [decode_request(body, H, W, native=True)
+             for body in bodies[:FILE_PICTURES]]
+    latencies = {}
+    for dtype in ("bfloat16", "float32"):
+        engine = InferenceEngine(smoke_options(dtype=dtype), max_batch=8,
+                                 device=device)
+        served = []
+        real = engine.predict
+
+        def recording(images, real=real, served=served):
+            out = real(images)
+            served.extend(zip(images, out))
+            return out
+
+        engine.predict = recording
+        batcher = MicroBatcher(engine, max_delay_ms=5.0)
+        server = make_http_server(batcher)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+        got, took, errors = {}, {}, []
+
+        def client(i):
+            req = urllib.request.Request(url, data=bodies[i], method="POST")
+            start = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    got[i] = np.load(io.BytesIO(resp.read()))
+            except Exception as err:  # reported below, fails the phase
+                errors.append(repr(err))
+            took[i] = 1e3 * (time.perf_counter() - start)
+
+        try:
+            client(0)  # the first call chooses cuDNN's algorithms
+            served.clear()
+            got.clear()
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(HTTP_REQUESTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=180)
+        finally:
+            server.shutdown()
+            server.server_close()
+            batcher.close()
+            thread.join(timeout=30)
+        if errors or len(got) != HTTP_REQUESTS:
+            raise AssertionError(f"HTTP {dtype}: {errors or len(got)}")
+        for i in range(HTTP_REQUESTS):
+            feed = feeds[i % FILE_PICTURES]
+            rows = [out for image, out in served
+                    if np.array_equal(image, feed)]
+            if not any(np.array_equal(got[i], out) for out in rows):
+                raise AssertionError(f"HTTP {dtype}: answer {i} is not the "
+                                     f"engine's disparity of its frame")
+        ms = sorted(took[i] for i in range(HTTP_REQUESTS))
+        latencies[dtype] = (statistics.median(ms),
+                            ms[min(len(ms) - 1, int(0.99 * len(ms)))])
+        print(f"  HTTP {dtype}: {HTTP_REQUESTS} concurrent POSTs of "
+              f"{FRAME_W}x{FRAME_H} PNGs answered with the engine's "
+              f"disparities ({engine.calls - 1} engine calls); latency p50 "
+              f"{latencies[dtype][0]:.1f} ms, p99 {latencies[dtype][1]:.1f} "
+              f"ms (decode, resize and the engine; {card_line()})",
+              flush=True)
+    return latencies
+
+
+def check_artifacts(root, device):
+    """export_artifact -> load_artifact against the engine: float32 within
+    1e-6, bf16 within phase 4's bound (BF16_* of the engine's own
+    bf16-float32 gap)."""
+    import numpy as np
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.serve import (
+        InferenceEngine, export_artifact, load_artifact)
+
+    x = np.random.default_rng(5).random((8, H, W, 3)).astype(np.float32)
+    outs = {}
+    for dtype in ("float32", "bfloat16"):
+        opt = smoke_options(dtype=dtype)
+        engine = InferenceEngine(opt, max_batch=8, device=device)
+        start = time.perf_counter()
+        path = export_artifact(opt, os.path.join(root, f"{dtype}.pt2"),
+                               max_batch=8, bundle=engine.bundle,
+                               device=device)
+        fn, meta = load_artifact(path, device=device)
+        seconds = time.perf_counter() - start
+        art = fn(torch.from_numpy(x).to(device)).cpu()
+        outs[dtype] = (art, torch.from_numpy(engine.predict(x)))
+        err = float((art - outs[dtype][1]).abs().max())
+        print(f"  artifact {dtype}: exported and loaded in {seconds:.2f} s "
+              f"({os.path.getsize(path) / 2**20:.1f} MiB), max |artifact - "
+              f"engine| {err:.3e}, meta {meta}", flush=True)
+        if dtype == "float32" and not err <= 1e-6:
+            raise AssertionError("the float32 artifact differs from the "
+                                 "engine")
+    art, eng16 = (t.double() for t in outs["bfloat16"])
+    gap = (eng16 - outs["float32"][1].double()).abs()
+    err = (art - eng16).abs()
+    ratios = (float(err.max() / gap.max()), float(err.mean() / gap.mean()))
+    print(f"  bf16 artifact against the bf16 engine: max {ratios[0]:.2f}x "
+          f"the engine's bf16-float32 gap (tol {BF16_MAX}), mean "
+          f"{ratios[1]:.2f}x (tol {BF16_MEAN})", flush=True)
+    if not (float(gap.max()) > 0 and ratios[0] <= BF16_MAX
+            and ratios[1] <= BF16_MEAN):
+        raise AssertionError("the bf16 artifact differs from the engine")
+
+
+def check_file_tools(root, lung, ckpt, device):
+    """cli.test_simple on phase 7's checkpoint over two lung frames;
+    cli.export_gt_depth on an eigen_benchmark tree of 16-bit PNGs;
+    --eval_split benchmark's PNGs read back with decode_png."""
+    import numpy as np
+
+    from unsupervised_pose_estimation_tpu_torch.cli import (evaluate_depth,
+                                                            export_gt_depth,
+                                                            test_simple)
+    from unsupervised_pose_estimation_tpu_torch.data.png import (read_png,
+                                                                 write_png)
+    from unsupervised_pose_estimation_tpu_torch.eval.metrics import \
+        resize_bilinear_np
+
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    for i in range(2):
+        shutil.copy(os.path.join(lung, "seq1", f"{i:010d}.png"),
+                    os.path.join(images, f"f{i}.png"))
+    start = time.perf_counter()
+    test_simple.main(["--image_path", images, "--model_path", ckpt,
+                      "--height", str(H), "--width", str(W),
+                      "--pose_prediction"], device=device)
+    seconds = time.perf_counter() - start
+    for i in range(2):
+        disp = np.load(os.path.join(images, f"f{i}_disp.npy"))
+        with open(os.path.join(images, f"f{i}_disp.jpg"), "rb") as f:
+            jpeg = f.read()
+        if disp.shape != (1, 1, H, W) or not np.isfinite(disp).all() or \
+                jpeg[:2] != b"\xff\xd8" or jpeg[-2:] != b"\xff\xd9":
+            raise AssertionError(f"test_simple: {disp.shape}, jpeg "
+                                 f"{jpeg[:2]!r}..{jpeg[-2:]!r}")
+    transform = np.loadtxt(os.path.join(images, "transform.csv"),
+                           delimiter=",")
+    rot = transform[:3, :3]
+    if transform.shape != (4, 4) or \
+            not np.allclose(rot @ rot.T, np.eye(3), atol=1e-5):
+        raise AssertionError(f"test_simple transform {transform}")
+    print(f"  cli.test_simple on the trainer's checkpoint: 2 frames of "
+          f"{FRAME_W}x{FRAME_H} in {seconds:.2f} s (the checkpoint's load "
+          f"included); .npy, magma .jpg and the pose CSVs", flush=True)
+
+    kitti = os.path.join(root, "kitti")
+    folder = "2011_09_26/2011_09_26_drive_0002_sync"
+    gt_dir = os.path.join(kitti, folder, "proj_depth", "groundtruth",
+                          "image_02")
+    os.makedirs(gt_dir)
+    split_dir = os.path.join(root, "kitti_splits")
+    os.makedirs(os.path.join(split_dir, "eigen_benchmark"))
+    rng = np.random.default_rng(6)
+    maps = []
+    for i, (h, w) in enumerate([(375, 1242), (370, 1224), (376, 1241)]):
+        depth = rng.integers(0, 20000, (h, w)).astype(np.uint16)
+        depth[rng.random((h, w)) < 0.7] = 0
+        write_png(os.path.join(gt_dir, f"{i:010d}.png"), depth)
+        maps.append(depth.astype(np.float32) / 256.0)
+    with open(os.path.join(split_dir, "eigen_benchmark", "test_files.txt"),
+              "w") as f:
+        f.write("".join(f"{folder} {i} l\n" for i in range(3)))
+    path = export_gt_depth.main(["--data_path", kitti, "--split",
+                                 "eigen_benchmark", "--split_dir",
+                                 split_dir], device=device)
+    got = np.load(path, allow_pickle=True)["data"]
+    if len(got) != 3 or not all(np.array_equal(a, b)
+                                for a, b in zip(got, maps)):
+        raise AssertionError("export_gt_depth's npz differs from the maps")
+    print("  cli.export_gt_depth: 3 annotated 16-bit PNGs -> gt_depths.npz "
+          "equal to the maps / 256", flush=True)
+
+    disps = rng.random((2, H, W)).astype(np.float32) * 0.3 + 0.01
+    np.save(os.path.join(root, "disps.npy"), disps)
+    bench = os.path.join(root, "bench")
+    os.makedirs(bench)
+    evaluate_depth.main(["--eval_split", "benchmark", "--eval_mono",
+                         "--ext_disp_to_eval",
+                         os.path.join(root, "disps.npy"),
+                         "--load_weights_folder", bench], device=device)
+    for i in range(2):
+        want = (np.clip(5.4 / np.maximum(resize_bilinear_np(
+            disps[i], 352, 1216), 1e-9), 0, 80) * 256).astype(np.uint16)
+        got = read_png(os.path.join(bench, "benchmark_predictions",
+                                    f"{i:010d}.png"), native=True)
+        if not np.array_equal(got, want):
+            raise AssertionError("benchmark PNG differs")
+    print("  --eval_split benchmark: 2 16-bit PNGs read back equal",
+          flush=True)
+
+
+@phase("files and serving")
+def phase_files(ckpt, device="cuda"):
+    """Phase 12: ``check_host_routines``, ``check_file_training``,
+    ``check_logged_images``, ``check_http``, ``check_artifacts``,
+    ``check_file_tools``. -> (host records, host call counts, HTTP
+    latencies, kernel launches of the phase)."""
+    from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+    from unsupervised_pose_estimation_tpu_torch.ops.kernels import _lib
+
+    records, calls = check_host_routines()
+    root = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        K.reset_counts()
+        lung, log_dir = check_file_training(root, device)
+        launches = K.counts()
+        check_logged_images(log_dir)
+        for name, n in _lib.host_counts().items():
+            calls[name] += n
+        latencies = check_http(lung, device)
+        check_artifacts(root, device)
+        check_file_tools(root, lung, ckpt, device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  files phase launches {launches}; {card_line()}", flush=True)
+    if device == "cuda" and (launches["warp_reproj_loss_bwd"] != 32):
+        raise AssertionError(f"files phase launches {launches}")
+    return records, calls, latencies, launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -2771,12 +3270,25 @@ def main() -> int:
         add(phase_options())
         add(phase_gan())
         add(phase("mesh")(phase_mesh)())
+        host, calls, latencies, files_launches = phase_files(ckpt)
+        add(files_launches)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     missing = [name for name, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    idle = [name for name, n in calls.items() if n == 0]
+    if idle:
+        raise AssertionError(f"host routines not called on the file "
+                             f"routes: {idle}")
+    print(json.dumps({"host_routines": [
+        dict(name=name, route="native", source=HOST_SOURCE,
+             replaces=HOST_ROUTINES[name]["replaces"], calls=calls[name],
+             max_abs_err=0, **host[name]) for name in HOST_ROUTINES],
+        "http_ms": {dtype: dict(p50=p50, p99=p99)
+                    for dtype, (p50, p99) in latencies.items()}}),
+        flush=True)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"], launches=launches[name],

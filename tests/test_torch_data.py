@@ -146,7 +146,8 @@ def test_caches_of_both_packages_are_the_same_bytes(lung_tree, tmp_path):
 
 def test_cache_route_needs_no_pil(lung_tree, tmp_path, monkeypatch):
     """With PIL unimportable, a cached dataset still yields its items, and
-    an uncached one names --frame_cache in its error."""
+    so does an uncached one: PNG frames are decoded and resized without
+    PIL (data.png, data.resample)."""
     data_path, lines = lung_tree
     cache_dir = str(tmp_path / "cache")
     jcache.build_frame_cache(lung(jdatasets, data_path, lines, True),
@@ -156,8 +157,8 @@ def test_cache_route_needs_no_pil(lung_tree, tmp_path, monkeypatch):
     ours = lung(datasets, data_path, lines, True)
     cache.attach_frame_cache(ours, cache_dir)
     assert_items_equal(ours.get_item(2, 1), want)
-    with pytest.raises(ImportError, match="--frame_cache"):
-        lung(datasets, data_path, lines, True).get_item(2, 1)
+    assert_items_equal(lung(datasets, data_path, lines, True).get_item(2, 1),
+                       want)
 
 
 def test_fingerprint_matches(lung_tree):

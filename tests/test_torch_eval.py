@@ -39,6 +39,7 @@ from unsupervised_pose_estimation_tpu_torch.cli import \
 from unsupervised_pose_estimation_tpu_torch.cli import \
     evaluate_pose as cli_pose
 from unsupervised_pose_estimation_tpu_torch.config import Options
+from unsupervised_pose_estimation_tpu_torch.data.png import read_png
 from unsupervised_pose_estimation_tpu_torch.eval import evaluate_depth as ED
 from unsupervised_pose_estimation_tpu_torch.eval import evaluate_pose as EP
 from unsupervised_pose_estimation_tpu_torch.train.bundle import ModelBundle
@@ -277,16 +278,21 @@ def test_checkpoint_evaluates_at_either_dtype(setup, tmp_path, saved,
 
 
 def test_evaluation_without_pil_or_matplotlib(setup, monkeypatch, tmp_path):
-    """PIL and matplotlib are imported only by the routes that need them,
-    and their absence names the route that works without them."""
+    """matplotlib is imported only by the route that needs it, and its
+    absence names the route that works without it; the benchmark split's
+    16-bit PNGs are written without PIL (data.png)."""
     monkeypatch.setitem(sys.modules, "PIL", None)
     monkeypatch.setitem(sys.modules, "matplotlib", None)
     disps = tmp_path / "disps.npy"
     np.save(disps, np.full((2, 8, 16), 0.5, np.float32))
     opt = Options(ext_disp_to_eval=str(disps), eval_split="benchmark",
                   load_weights_folder=str(tmp_path))
-    with pytest.raises(ImportError, match="--save_pred_disps"):
-        ED.evaluate(opt)
+    assert ED.evaluate(opt) is None
+    for idx in range(2):
+        depth16 = read_png(str(tmp_path / "benchmark_predictions" /
+                                f"{idx:010d}.png"))
+        assert depth16.shape == (352, 1216)
+        assert (depth16 == int(ED.STEREO_SCALE_FACTOR / 0.5 * 256)).all()
     with pytest.raises(ImportError, match="eval_pose_trajectory"):
         EP.plot_trajectory(np.zeros((3, 3)), np.ones((3, 3)),
                            str(tmp_path / "vo.png"))

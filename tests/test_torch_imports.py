@@ -56,10 +56,17 @@ def test_training_modules_are_among_those_checked():
     modules = set(port_modules())
     for name in ("ops.augment_device", "train.state", "train.step",
                  "ops.kernels.warp_loss", "ops.kernels.reproj_loss",
-                 "ops.kernels.warp", "models.layers"):
+                 "ops.kernels.warp", "models.layers",
+                 # files and serving without PIL
+                 "data.png", "data.resample", "data.jpeg", "data.colormap",
+                 "data.make_splits", "data.cache", "data.datasets",
+                 "cli.build_frame_cache", "cli.serve", "cli.export_model",
+                 "cli.test_simple", "cli.export_gt_depth", "serve",
+                 "utils"):
         assert f"{port.__name__}.{name}" in modules, name
     sources = {p.name for p in (ROOT / port.__name__ / "csrc").glob("*.cu")}
     assert {"warp_loss_bwd.cu", "reproj_loss_bwd.cu"} <= sources
+    assert (ROOT / port.__name__ / "csrc" / "image_host.cpp").is_file()
 
 
 def test_ladder_modules_are_among_those_checked():

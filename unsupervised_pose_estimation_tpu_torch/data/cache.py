@@ -4,10 +4,12 @@ Port of ``unsupervised_pose_estimation_tpu/data/cache.py``, in the same
 format, so a cache either package builds is read by both: ``frames_u8.npy``
 (N, H, W, 3) uint8, written through ``open_memmap``, and ``index.json``
 holding the height, the width, the dataset fingerprint and a
-``{folder|frame|side: row}`` index. Reading needs numpy alone, which is how
-the file datasets train where PIL is not installed; building decodes and
-resizes (LANCZOS) with PIL. The flip and the jitter stay per item, so
-cached and uncached items are bit-identical.
+``{folder|frame|side: row}`` index. Reading needs numpy alone; building
+decodes and resizes as the dataset's own items do (``data.png``,
+``data.resample.resize_lanczos``: PIL's LANCZOS bytes, native host routines
+when the dataset's ``native`` is set), so the port's cache holds the bytes
+of the reference's. The flip and the jitter stay per item, so cached and
+uncached items are bit-identical.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Optional
 
 import numpy as np
 
-from .datasets import _pil_image
+from .resample import resize_lanczos
 from .split import parse_split_line
 
 FRAMES_FILE = "frames_u8.npy"
@@ -89,8 +91,7 @@ def build_frame_cache(dataset, cache_dir: str, log=None) -> dict:
         except (FileNotFoundError, OSError):
             skipped += 1
             continue
-        arr[row] = np.asarray(img.resize((w, h), _pil_image().LANCZOS),
-                              np.uint8)
+        arr[row] = resize_lanczos(img, h, w, dataset.native)
         index[frame_key(folder, fi, side)] = row
         row += 1
         if log is not None and row % 500 == 0:

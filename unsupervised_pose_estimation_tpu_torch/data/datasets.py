@@ -17,9 +17,13 @@ dict of numpy arrays, frames on a leading axis in ``frame_idxs`` order
 
 Items are bit-identical to the reference package's for the same seed. The
 file datasets read their frames from an attached frame cache
-(``data.cache``) when there is one, with numpy alone; otherwise they decode
-and resize with PIL, which they import only then. The geometric flip is a
-numpy flip (the same bytes as PIL's FLIP_LEFT_RIGHT).
+(``data.cache``) when there is one; otherwise they decode PNG frames with
+``data.png`` and resize them with ``data.resample.resize_lanczos`` (PIL's
+bytes, without PIL), through the native host routines when ``native`` is
+set (the trainer and the evaluation set it on a CUDA device) and numpy
+otherwise. PIL is imported only for frames that are not PNG files (JPEG)
+and for the scene_points TIFF depth of the lung layout. The geometric flip
+is a numpy flip (the same bytes as PIL's FLIP_LEFT_RIGHT).
 """
 
 from __future__ import annotations
@@ -30,28 +34,9 @@ from typing import Optional, Sequence
 import numpy as np
 
 from .augment import AugmentParams, apply_augment
+from .png import pil_image, read_image, read_png
+from .resample import resize_lanczos, resize_nearest_pil
 from .split import parse_split_line
-
-
-def _pil_image():
-    """PIL.Image, or an ImportError that says how to train without it."""
-    try:
-        from PIL import Image
-    except ImportError as err:
-        raise ImportError(
-            "decoding image files needs PIL, which is not installed here; "
-            "build a frame cache where PIL is installed (the trainer builds "
-            "one on first use with --frame_cache <dir>) and train with "
-            "--frame_cache <dir>, which reads frames with numpy alone"
-        ) from err
-    return Image
-
-
-def pil_loader(path: str):
-    Image = _pil_image()
-    with open(path, "rb") as f:
-        with Image.open(f) as img:
-            return img.convert("RGB")
 
 
 class MonoDataset:
@@ -64,7 +49,7 @@ class MonoDataset:
                  width: int, frame_idxs: Sequence, is_train: bool = False,
                  img_ext: str = ".png", sampling_frequency: int = 1,
                  load_depth: bool = False, seed: int = 0,
-                 device_augment: bool = False):
+                 device_augment: bool = False, native: bool = False):
         self.data_path = data_path
         self.filenames = list(filenames)
         self.height = height
@@ -79,6 +64,9 @@ class MonoDataset:
         # ship the 6 drawn jitter factors instead of color_aug; the
         # training step applies them on the device
         self.device_augment = device_augment
+        # decode and resize through the native host routines
+        # (ops.kernels._lib.native_route), else numpy: the same bytes
+        self.native = native
 
     # -- subclass hooks ------------------------------------------------
     def get_image_path(self, folder: str, frame_index: int,
@@ -92,22 +80,23 @@ class MonoDataset:
         raise NotImplementedError
 
     def load_frame(self, folder: str, frame_index: int,
-                   side: Optional[str]):
-        """The decoded frame at its file's resolution (a PIL image)."""
-        return pil_loader(self.get_image_path(folder, frame_index, side))
+                   side: Optional[str]) -> np.ndarray:
+        """The decoded (H0, W0, 3) uint8 RGB frame at its file's
+        resolution."""
+        return read_image(self.get_image_path(folder, frame_index, side),
+                          self.native)
 
     def load_resized(self, folder: str, frame_index: int,
                      side: Optional[str]) -> np.ndarray:
         """(H, W, 3) uint8 frame at the feed resolution: from the frame
         cache when one is attached and holds it, else decoded and resized
-        (LANCZOS) with PIL."""
+        (PIL's LANCZOS, ``resize_lanczos``)."""
         if self.frame_cache is not None:
             arr = self.frame_cache.get(folder, frame_index, side)
             if arr is not None:
                 return arr
-        img = self.load_frame(folder, frame_index, side)
-        img = img.resize((self.width, self.height), _pil_image().LANCZOS)
-        return np.asarray(img, np.uint8)
+        return resize_lanczos(self.load_frame(folder, frame_index, side),
+                              self.height, self.width, self.native)
 
     # ------------------------------------------------------------------
     def __len__(self):
@@ -165,7 +154,8 @@ class MonoDataset:
 def _read_scene_points_tiff(path: str) -> np.ndarray:
     """SCARED-style scene_points TIFF -> depth plane (channel 0, top 1024
     rows)."""
-    arr = np.asarray(_pil_image().open(path), np.float32)
+    Image = pil_image("reading a scene_points TIFF")
+    arr = np.asarray(Image.open(path), np.float32)
     if arr.ndim == 3:
         arr = arr[..., 0]
     return arr[:1024, :]
@@ -217,8 +207,8 @@ class SCAREDRAWDataset(LungRAWDataset):
                             f"image_0{self.side_map[side]}/data", f_str)
 
     def load_frame(self, folder, frame_index, side):
-        img = pil_loader(self.get_image_path(folder, frame_index, side))
-        return img.crop((0, 0, img.size[0], img.size[1] - 64))
+        img = super().load_frame(folder, frame_index, side)
+        return img[:img.shape[0] - 64]
 
 
 class KITTIRAWDataset(MonoDataset):
@@ -282,10 +272,14 @@ class KITTIDepthDataset(KITTIRAWDataset):
             f"image_0{self.side_map[side]}", f"{frame_index:010d}.png")
 
     def get_depth(self, folder, frame_index, side, do_flip):
-        Image = _pil_image()
-        depth_png = Image.open(self._depth_path(folder, frame_index, side))
-        depth_png = depth_png.resize(self.FULL_RES, Image.NEAREST)
-        depth = np.asarray(depth_png, np.float32) / 256.0
+        depth_png = read_png(self._depth_path(folder, frame_index, side),
+                             self.native)
+        if depth_png.dtype != np.uint16 or depth_png.ndim != 2:
+            raise ValueError(f"annotated depth {depth_png.shape} "
+                             f"{depth_png.dtype}: expected 16-bit grey")
+        depth_png = resize_nearest_pil(depth_png, self.FULL_RES[1],
+                                       self.FULL_RES[0])
+        depth = depth_png.astype(np.float32) / 256.0
         if do_flip:
             depth = np.fliplr(depth)
         return depth

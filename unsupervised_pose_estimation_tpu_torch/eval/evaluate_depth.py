@@ -24,9 +24,11 @@ import torch
 
 from ..config import Options
 from ..data.datasets import make_dataset
+from ..data.png import write_png
 from ..data.pipeline import Loader
 from ..data.split import readlines, resolve_split_file
 from ..ops.geometry import disp_to_depth
+from ..ops.kernels._lib import native_route
 from ..train.bundle import ModelBundle
 from ..train.checkpoint import (import_depth_decoder, latest_step,
                                 load_pth_folder, restore_checkpoint)
@@ -68,9 +70,10 @@ def splits_root(opt: Options) -> str:
                                          "..", "..", "splits")
 
 
-def eval_dataset(opt: Options, filenames, frame_idxs):
+def eval_dataset(opt: Options, filenames, frame_idxs, native=False):
     """The validation dataset of ``opt.dataset`` over ``filenames``; for the
-    synthetic datasets, one item per line."""
+    synthetic datasets, one item per line. ``native``: the file datasets
+    decode and resize through the native host routines."""
     extra = {}
     if opt.dataset in SYNTHETIC:
         extra = {"num_items": len(filenames),
@@ -78,7 +81,8 @@ def eval_dataset(opt: Options, filenames, frame_idxs):
     return make_dataset(opt.dataset, data_path=opt.data_path,
                         filenames=filenames, height=opt.height,
                         width=opt.width, frame_idxs=frame_idxs,
-                        is_train=False, img_ext=".png", **extra)
+                        is_train=False, img_ext=".png", native=native,
+                        **extra)
 
 
 def write_synthetic_split(opt: Options, num_items: int) -> str:
@@ -140,9 +144,9 @@ def load_eval_state(opt: Options, device="cuda",
 def predict_disparities(opt: Options, bundle: ModelBundle,
                         filenames) -> np.ndarray:
     """-> (N, H, W) scaled disparities of frame 0 of each line, in order."""
-    ds = eval_dataset(opt, filenames, [0])
-    frames = _EvalFrames(ds)
     device = next(bundle.parameters()).device
+    ds = eval_dataset(opt, filenames, [0], native_route(device))
+    frames = _EvalFrames(ds)
     infer = build_infer_step(bundle)
 
     def scaled(img):
@@ -173,22 +177,15 @@ def predict_disparities(opt: Options, bundle: ModelBundle,
 
 
 def _save_benchmark_pngs(pred_disps: np.ndarray, save_dir: str):
-    """KITTI online-benchmark submission: uint16 depth * 256 at 1216x352."""
-    try:
-        from PIL import Image
-    except ImportError as err:
-        raise ImportError(
-            "--eval_split benchmark writes its 16-bit PNGs with PIL, which "
-            "is not installed; pass --save_pred_disps --no_eval to save the "
-            "predictions as a .npy instead") from err
+    """KITTI online-benchmark submission: uint16 depth * 256 at 1216x352,
+    16-bit grey PNGs (``data.png.write_png``)."""
     os.makedirs(save_dir, exist_ok=True)
     for idx in range(len(pred_disps)):
         disp_resized = resize_bilinear_np(pred_disps[idx], 352, 1216)
         depth = STEREO_SCALE_FACTOR / np.maximum(disp_resized, 1e-9)
         depth = np.clip(depth, 0, 80)
         depth16 = (depth * 256).astype(np.uint16)
-        Image.fromarray(depth16, mode="I;16").save(
-            os.path.join(save_dir, f"{idx:010d}.png"))
+        write_png(os.path.join(save_dir, f"{idx:010d}.png"), depth16)
 
 
 def evaluate(opt: Options, gt_depths: Optional[np.ndarray] = None,

@@ -21,6 +21,7 @@ import torch
 from ..config import Options
 from ..data.split import readlines, resolve_split_file
 from ..ops.geometry import transformation_from_parameters
+from ..ops.kernels._lib import native_route
 from ..train.bundle import ModelBundle
 from .evaluate_depth import eval_dataset, load_eval_state, splits_root
 from .metrics import compute_ate, compute_re, dump_r, dump_xyz
@@ -41,8 +42,8 @@ def predict_pose_sequence(opt: Options, bundle: ModelBundle,
                          f"network over pairs; this one is "
                          f"{cfg.pose_model_type} over "
                          f"{cfg.pose_model_input}")
-    ds = eval_dataset(opt, filenames, [0, 1])
     device = next(bundle.parameters()).device
+    ds = eval_dataset(opt, filenames, [0, 1], native_route(device))
     bundle.eval()
 
     def pose(pairs):

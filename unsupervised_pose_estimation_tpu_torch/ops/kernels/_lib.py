@@ -1,6 +1,7 @@
 """Build, load and count the CUDA kernels of ``csrc/``.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into a shared
+One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a``, and the host
+routines of ``csrc/*.cpp`` (the image codec's native route), into a shared
 library with a plain C interface; ``ctypes`` loads it. Nothing includes
 PyTorch's headers, so the build takes seconds. The library goes into
 ``_build/`` beside the package (listed in ``.gitignore``), named by a hash
@@ -42,6 +43,12 @@ SIGNATURES = {
     "upe_fetch_corners": [_P] * 8 + [_I] * 7 + [_P],
     "upe_fetch_corners_packed": [_P] * 8 + [_I] * 7 + [_P],
 }
+# The host routines of csrc/image_host.cpp (data.png, data.resample).
+HOST_SIGNATURES = {
+    "upe_png_unfilter": [_P, _I, _I, _I, _P],
+    "upe_resample_horizontal_u8": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _I],
+    "upe_resample_vertical_u8": [_P, _I, _I, _P, _I, _P, _P, _I, _P],
+}
 
 # Launches per kernel since the last reset_counts(); a wrapper adds one
 # where it launches its kernel and nowhere else.
@@ -54,6 +61,9 @@ LAUNCHES = {"warp_reproj_loss": 0, "reproj_loss": 0, "warp": 0,
 # one beneath it, or the plain gather at the bottom.
 RUNGS = {"v1": 0, "v2": 0, "v3": 0, "v4": 0, "v5": 0, "v6": 0, "v7": 0,
          "v3_wide": 0, "v8": 0, "gather": 0}
+# Calls of the host routines since the last reset_counts().
+HOST_CALLS = {"png_unfilter": 0, "resample_horizontal_u8": 0,
+              "resample_vertical_u8": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -61,8 +71,12 @@ build_log = ""      # nvcc's output of the build this process ran, if any
 build_seconds = 0.0
 
 
+def _compiled():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cpp"))
+
+
 def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    return _compiled() + sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -94,7 +108,7 @@ def build() -> Path:
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cus = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    cus = [str(s) for s in _compiled()]
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
@@ -119,14 +133,27 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            declare(lib, {**SIGNATURES, **HOST_SIGNATURES})
             lib.upe_error_string.argtypes = [ctypes.c_int]
             lib.upe_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def declare(lib: ctypes.CDLL, signatures: dict) -> None:
+    """Set the argument types and the int return type of ``lib``'s
+    functions named in ``signatures``."""
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+
+
+def native_route(device) -> bool:
+    """Whether an entry point on ``device`` runs the image codec's native
+    host routines (a CUDA device: the library is built with the kernels, or
+    the call raises) or their numpy versions (the CPU)."""
+    return torch.device(device).type == "cuda"
 
 
 def counts() -> dict:
@@ -139,10 +166,16 @@ def rung_counts() -> dict:
         return dict(RUNGS)
 
 
-def reset_counts() -> None:
-    """Zero the launch counts and the rung counts."""
+def host_counts() -> dict:
     with _lock:
-        for table in (LAUNCHES, RUNGS):
+        return dict(HOST_CALLS)
+
+
+def reset_counts() -> None:
+    """Zero the launch counts, the rung counts and the host routines'
+    call counts."""
+    with _lock:
+        for table in (LAUNCHES, RUNGS, HOST_CALLS):
             for name in table:
                 table[name] = 0
 
@@ -162,6 +195,15 @@ def launch(name: str, fn: str, *args) -> None:
         raise RuntimeError(f"{fn} launch failed: CUDA error {code} ({msg})")
     with _lock:
         LAUNCHES[name] += 1
+
+
+def call_host(name: str, fn: str, *args) -> int:
+    """Call host routine ``fn`` of the library, count one call of ``name``
+    and return its code (0: done; the caller raises on any other)."""
+    code = getattr(library(), fn)(*args)
+    with _lock:
+        HOST_CALLS[name] += 1
+    return code
 
 
 def stream_of(t) -> int:

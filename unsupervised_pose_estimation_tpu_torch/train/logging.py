@@ -20,6 +20,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..data.png import write_png
+
 
 def sec_to_hm_str(t: float) -> str:
     """10239 -> '02h50m39s'."""
@@ -98,8 +100,8 @@ class MetricLogger:
 
     def log_images(self, mode: str, images: Dict[str, np.ndarray], step: int):
         """Per-scale disp/automask/warped images: to W&B when enabled,
-        else PNGs under ``<log_path>/images/step_<N>/`` (PIL, imported
-        here)."""
+        else 8-bit PNGs under ``<log_path>/images/step_<N>/``
+        (``data.png.write_png``)."""
         if not self.writes:
             return
         if self._wandb:
@@ -111,8 +113,6 @@ class MetricLogger:
             return
         out_dir = os.path.join(self.log_path, "images", f"step_{step}")
         os.makedirs(out_dir, exist_ok=True)
-        from PIL import Image
-
         for name, img in images.items():
             arr = np.asarray(normalize_image(img))
             if arr.ndim == 3 and arr.shape[0] in (1, 3) \
@@ -122,7 +122,7 @@ class MetricLogger:
                 arr = arr[..., 0]
             u8 = (np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)
             safe = f"{mode}_{name}".replace("/", "_")
-            Image.fromarray(u8).save(os.path.join(out_dir, f"{safe}.png"))
+            write_png(os.path.join(out_dir, f"{safe}.png"), u8)
 
     def finish(self):
         if self._jsonl:

@@ -38,6 +38,7 @@ from ..data.datasets import (SyntheticDataset, SyntheticParallaxDataset,
 from ..data.pipeline import Loader, process_local_rows
 from ..data.split import readlines, resolve_split_file
 from ..ops.geometry import disp_to_depth
+from ..ops.kernels import _lib
 from ..parallel.mesh import all_gather, make_mesh, rank_device
 from . import checkpoint as ck
 from .bundle import ModelBundle
@@ -162,13 +163,18 @@ class Trainer:
             common = dict(height=cfg.height, width=cfg.width,
                           frame_idxs=frame_ids, img_ext=".png",
                           sampling_frequency=sf, seed=cfg.seed,
-                          device_augment=cfg.device_augment)
+                          device_augment=cfg.device_augment,
+                          native=_lib.native_route(self.device))
             train_ds = make_dataset(cfg.dataset, data_path=cfg.data_path,
                                     filenames=train_files, is_train=True,
                                     **common)
             val_ds = make_dataset(cfg.dataset, data_path=cfg.data_path,
                                   filenames=val_files, is_train=False,
                                   load_depth=True, **common)
+            if train_ds.native:
+                # built (or raising) here, so that process workers load it
+                # and none of them builds it
+                _lib.library()
             if cfg.frame_cache:
                 # pre-decoded uint8 frames, train and val side by side
                 from ..data.cache import attach_frame_cache
