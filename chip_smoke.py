@@ -59,7 +59,8 @@ Phases, each timed on its own line:
    memory, TF32 and the card's power limit, and the K1-K3 launches of the
    phase;
 8. evaluation: ``cli.evaluate_depth`` (mono, post-processed) and
-   ``cli.evaluate_pose`` on phase 7's last checkpoint, over a split of
+   ``cli.evaluate_pose`` (at its defaults: the trajectory plot on) on
+   phase 7's last checkpoint, over a split of
    ``synthetic_parallax`` items with their exact depth and poses, at the
    trainer's feed (timed) and, against the same entry points and functions
    on the CPU, at a small size;
@@ -67,7 +68,10 @@ Phases, each timed on its own line:
    the stereo frame and v1 multiscale; B, PoseCNN over all frames with the
    predictive mask and the upstream decoder; C, the separate pose network
    over all frames): each group's two training steps on the card against
-   the CPU's at a small size, in float32 and in bfloat16 (as phase 5);
+   the CPU's at a small size, in float32 and in bfloat16 (as phase 5),
+   and group A's first again under deterministic cuDNN (a ``grad_norm``
+   past its bound passes only where the kinks the card's step met
+   explain it, ``KinkRecorder``);
    K6 on a float frame at version 8 (v1 multiscale's scale-0 warp); each
    group's three training steps and one validation step at batch 12,
    640x192, in bfloat16 and in float32, with wall ms, peak memory,
@@ -118,7 +122,20 @@ Phases, each timed on its own line:
    (float32 within 1e-6, bfloat16 within phase 4's bound);
    ``cli.test_simple`` on phase 7's checkpoint; ``cli.export_gt_depth`` on
    an eigen_benchmark tree of 16-bit PNGs; ``--eval_split benchmark``'s
-   PNGs read back.
+   PNGs read back;
+13. the last host routes, with ``PIL`` and ``matplotlib`` blocked: (a)
+   phase 12's lung tree gains scene_points TIFFs (1024x1280 float32, LZW)
+   for its validation lines, ``cli.train`` runs two steps with the host
+   jitter (``--device_augment`` off) and a validation whose depth metrics
+   come from the TIFFs, and ``cli.evaluate_depth`` runs over those lines
+   with their TIFF depth; (b) ``cli.evaluate_pose`` at its defaults, its
+   ``vo.png`` read back; (c) ``cli.test_simple`` on 1280x1024 JPEGs (the
+   ``_disp.jpg`` decoded back) and an HTTP POST of one, answered with the
+   engine's disparity of the local decode; (d) every file of
+   ``tests/data/pil`` through the native and numpy routes, and the jitter
+   cases, against PIL's results in its manifest; (e) host ms per frame of
+   the JPEG decode and the scene_points read (native and numpy, bit-equal)
+   and of the host jitter.
 
 It prints one JSON line of the host routines' records and the HTTP
 latencies, one JSON line of kernel records, then, as its last line, the
@@ -745,7 +762,11 @@ def check_train_against_cpu(device, version=8, steps=2, networks=True,
     (read 1.1e-5) and 1e-3 at step 2 (1.9e-4, past such a flip), the whole
     gradient to 5e-2 in L2 (read 1.2e-3 and 2.2e-2), and each parameter's
     gradient to 1e-10 of its own largest value in float64
-    (``check_networks_float64``, read 3.4e-14). ``version`` is the warp
+    (``check_networks_float64``, read 3.4e-14). A gradient norm past its
+    bound passes only where kinks explain it (``KinkRecorder.explain``):
+    the CPU's step, given the card's side of every kink the card's step
+    met, must then agree with the card's to a fifth of the bound.
+    ``version`` is the warp
     ladder's (``pallas_warp_version``), ``steps`` how many steps run,
     ``networks`` whether the float64 network check follows, ``options``
     more Options fields (a training option group, phase 9)."""
@@ -785,10 +806,13 @@ def check_train_against_cpu(device, version=8, steps=2, networks=True,
     for k in range(steps):
         card.load_state_dict(cpu.state_dict())
         noise = smoke_noise(gen, opt, b, h, w)
+        before = copy.deepcopy(cpu)
         want = runs[0][2](runs[0][1], batch, noise=noise)
-        got = runs[1][2](runs[1][1], {n: v.to(device)
-                                      for n, v in batch.items()},
-                         noise=to_device(noise, device))
+        kinks = KinkRecorder()
+        with kinks.recording():
+            got = runs[1][2](runs[1][1], {n: v.to(device)
+                                          for n, v in batch.items()},
+                             noise=to_device(noise, device))
         rel = {n: abs(float(got[n]) - float(v)) / abs(float(v))
                for n, v in want.items()}
         worst = max((n for n in rel if n != "grad_norm"), key=rel.get)
@@ -812,7 +836,11 @@ def check_train_against_cpu(device, version=8, steps=2, networks=True,
               f"{grad_l2:.3e} (tol 5e-2), parameters max "
               f"{float(diff.max()) / LR:.3f} lr (tol 2 lr), statistics "
               f"{stats:.3e} (tol 2e-5)", flush=True)
-        if not (rel[worst] <= 1e-4 and rel["grad_norm"] <= norm_tol
+        norm_ok = rel["grad_norm"] <= norm_tol
+        if not norm_ok:
+            norm_ok = kinks.explain(before, batch, noise,
+                                    float(got["grad_norm"]), norm_tol)
+        if not (rel[worst] <= 1e-4 and norm_ok
                 and grad_l2 <= 5e-2
                 and float(diff.max()) <= 2 * LR + 1e-6 and stats <= 2e-5):
             raise AssertionError(f"training step {k + 1} on the card "
@@ -823,6 +851,147 @@ def check_train_against_cpu(device, version=8, steps=2, networks=True,
     if networks:
         check_networks_float64(cpu, device, batch_augment(
             batch["color"], batch["aug_params"]))
+
+
+# Phase 9's option group A (stereo, v1 multiscale) reads a step-1
+# grad_norm gap of 1.004e-4 against its 1e-4 bound under cuDNN's
+# deterministic algorithms (5e-5 to 7.2e-5 without them) on an H100 80GB
+# HBM3. The card's and the CPU's steps meet kinks of the loss on different
+# sides: a pixel whose per-pixel minimum reprojection (the automask) picks
+# another candidate, and sampling coordinates on the two sides of an
+# integer (the bilinear weights) or of a clip bound. With the card's side
+# of each, the CPU's step agrees with the card's to about 5e-6.
+KINK_TOL = 1 / 5    # of the grad_norm bound, for the aligned comparison
+
+
+class KinkRecorder:
+    """Records the card's sampling coordinates (``geometry.project``) and
+    per-pixel minimum choices (``losses.min_reprojection``) during a
+    training step; ``explain`` reruns the CPU's step with the card's side
+    of every kink where the two differ."""
+
+    def __init__(self):
+        self.grids, self.mins = [], []
+
+    @staticmethod
+    def candidates(reproj, identity, noise, avg):
+        """The candidates ``min_reprojection`` takes the minimum over."""
+        import torch
+
+        if avg:
+            reproj = torch.mean(reproj, dim=-1, keepdim=True)
+        if identity is None:
+            return reproj
+        if avg:
+            identity = torch.mean(identity, dim=-1, keepdim=True)
+        return torch.cat([identity + noise, reproj], dim=-1)
+
+    @contextlib.contextmanager
+    def recording(self):
+        from unittest import mock
+
+        import torch
+
+        from unsupervised_pose_estimation_tpu_torch.ops import geometry as G
+        from unsupervised_pose_estimation_tpu_torch.ops import losses as L
+
+        project, minimum = G.project, L.min_reprojection
+
+        def spy_project(*args, **kwargs):
+            out = project(*args, **kwargs)
+            self.grids.append(out.detach().double().cpu())
+            return out
+
+        def spy_min(reproj, identity, noise=None, **kwargs):
+            cand = (None if noise is None and identity is not None else
+                    self.candidates(reproj, identity, noise,
+                                    kwargs.get("avg_reprojection", False)))
+            self.mins.append(None if cand is None else
+                             torch.argmin(cand, dim=-1).cpu())
+            return minimum(reproj, identity, noise=noise, **kwargs)
+
+        with mock.patch.object(G, "project", spy_project), \
+                mock.patch.object(L, "min_reprojection", spy_min):
+            yield
+
+    def explain(self, bundle, batch, noise, card_norm, norm_tol):
+        """The CPU's training step from ``bundle`` (the parameters the step
+        started from) on ``batch`` and ``noise``, with every sampling
+        coordinate that lies on the other side of a clip bound or an
+        integer than the card's taking the card's value and every pixel
+        whose minimum picks another candidate taking the card's; prints the
+        kinks and -> whether its grad_norm is within KINK_TOL * norm_tol of
+        the card's (and any kink was met)."""
+        from unittest import mock
+
+        import torch
+
+        from unsupervised_pose_estimation_tpu_torch.ops import geometry as G
+        from unsupervised_pose_estimation_tpu_torch.ops import losses as L
+        from unsupervised_pose_estimation_tpu_torch.train.state import \
+            create_train_state
+        from unsupervised_pose_estimation_tpu_torch.train.step import \
+            build_train_step
+
+        project, minimum = G.project, L.min_reprojection
+        calls = {"project": 0, "min": 0}
+        met = {"clip": 0, "integer": 0, "min": 0}
+        first = []
+
+        def aligned_project(*args, **kwargs):
+            out = project(*args, **kwargs)
+            card = self.grids[calls["project"]]
+            calls["project"] += 1
+            hh, ww = out.shape[2], out.shape[3]
+            scale = torch.tensor([ww - 1, hh - 1], dtype=torch.float64)[
+                None, :, None, None]
+            mine = (out.detach().double() + 1) * 0.5 * scale
+            theirs = (card + 1) * 0.5 * scale
+            clip = ((mine < 0) != (theirs < 0)) | \
+                ((mine > scale) != (theirs > scale))
+            integer = torch.floor(mine) != torch.floor(theirs)
+            met["clip"] += int(clip.sum())
+            met["integer"] += int((integer & ~clip).sum())
+            if clip.any() and not first:
+                at = tuple(torch.nonzero(clip)[0].tolist())
+                first.append(f"warp {calls['project'] - 1} (batch, axis, "
+                             f"row, col) {at}: CPU {float(mine[at]):.7f}, "
+                             f"card {float(theirs[at]):.7f} px")
+            mask = clip | integer
+            return out + ((card.to(out.dtype) - out) * mask).detach()
+
+        def aligned_min(reproj, identity, noise=None, **kwargs):
+            card = self.mins[calls["min"]]
+            calls["min"] += 1
+            cand = None if card is None else self.candidates(
+                reproj, identity, noise, kwargs.get("avg_reprojection",
+                                                    False))
+            if cand is None or cand.shape[-1] == 1:
+                return minimum(reproj, identity, noise=noise, **kwargs)
+            flip = torch.argmin(cand, dim=-1) != card
+            met["min"] += int(flip.sum())
+            best = torch.amin(cand, dim=-1)
+            chosen = cand.gather(-1, card[..., None])[..., 0]
+            automask = (None if identity is None else
+                        (card > identity.shape[-1] - 1).to(reproj.dtype))
+            return torch.where(flip, chosen, best), automask
+
+        with mock.patch.object(G, "project", aligned_project), \
+                mock.patch.object(L, "min_reprojection", aligned_min):
+            out = build_train_step(bundle)(create_train_state(bundle), batch,
+                                           noise=noise)
+        norm = float(out["grad_norm"])
+        gap = abs(card_norm - norm) / abs(norm)
+        tol = KINK_TOL * norm_tol
+        ok = gap <= tol and any(met.values())
+        print(f"  grad_norm past its bound: the card's step met kinks on "
+              f"the other side from the CPU's ({met['min']} minimum "
+              f"choices, {met['integer']} coordinates across an integer, "
+              f"{met['clip']} across a clip bound{'; ' if first else ''}"
+              f"{''.join(first)}); the CPU with the card's side of them: "
+              f"grad_norm relative error {gap:.3e} (tol {tol:.0e}) -> "
+              f"{'explained' if ok else 'NOT explained'}", flush=True)
+        return ok
 
 
 def gan_inputs(batch):
@@ -1913,15 +2082,16 @@ def eval_args(ckpt, split_dir, b, h, w):
             split_dir, "--eval_split", "smoke"]
 
 
-def evaluate_both(args, device):
-    """cli.evaluate_depth (mono, post_process) and cli.evaluate_pose (no
-    plot: the card's machine has no matplotlib); -> both rows."""
+def evaluate_both(args, device, out_dir):
+    """cli.evaluate_depth (mono, post_process) and cli.evaluate_pose at its
+    defaults (its trajectory plot, vo.png, into ``out_dir``); -> both
+    rows."""
     from unsupervised_pose_estimation_tpu_torch.cli import (evaluate_depth,
                                                             evaluate_pose)
 
     depth = evaluate_depth.main(args + ["--eval_mono", "--post_process"],
                                 device=device)
-    pose = evaluate_pose.main(args + ["--eval_pose_trajectory"],
+    pose = evaluate_pose.main(args + ["--eval_out_dir", out_dir],
                               device=device)
     return {**depth, **pose}
 
@@ -1963,7 +2133,8 @@ def phase_evaluation(ckpt, device="cuda"):
         if device == "cuda":
             torch.cuda.reset_peak_memory_stats()
         start = time.perf_counter()
-        row = evaluate_both(eval_args(ckpt, split_dir, B, H, W), device)
+        row = evaluate_both(eval_args(ckpt, split_dir, B, H, W), device,
+                            root)
         if device == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - start
@@ -1993,8 +2164,10 @@ def phase_evaluation(ckpt, device="cuda"):
         within_bf16_gap(*disps, f"evaluation disparities ({n} items at "
                                 f"batch {b}, {w}x{h}, post-processed)")
         within_bf16_gap(*poses, "evaluation poses")
-        rows = [evaluate_both(args, device), evaluate_both(args, "cpu"),
-                evaluate_both(args + ["--compute_dtype", "float32"], "cpu")]
+        rows = [evaluate_both(args, device, root),
+                evaluate_both(args, "cpu", root),
+                evaluate_both(args + ["--compute_dtype", "float32"], "cpu",
+                              root)]
         rel = [{k: abs(r[k] - rows[1][k]) / abs(rows[1][k])
                 for k in rows[1]} for r in (rows[0], rows[2])]
         gap = max(rel[1].values())
@@ -2256,13 +2429,22 @@ def check_option_entry_points(root, device):
 def phase_options(device="cuda"):
     """The training options of OPTION_GROUPS: each group's two training
     steps on the card against the CPU at a small size, in float32 and in
-    bfloat16; K6 on a float frame at version 8; each group's steps at B,
+    bfloat16, and group A's first again under deterministic cuDNN; K6 on a
+    float frame at version 8; each group's steps at B,
     H x W in bfloat16 and in float32 with its launches, rungs, wall ms and
     peak memory;
     the entry points with the options. -> launches of the phase's runs."""
+    from unsupervised_pose_estimation_tpu_torch.train.loop import \
+        deterministic_cudnn
+
     for name, opts in OPTION_GROUPS.items():
         check_train_against_cpu(device, networks=False, options=opts)
         check_bf16_train_against_cpu(device, options=opts)
+    # group A's first step again under the trainer's deterministic cuDNN,
+    # where its grad_norm gap passes the bound and its kinks explain it
+    with deterministic_cudnn():
+        check_train_against_cpu(device, steps=1, networks=False,
+                                options=OPTION_GROUPS["A"])
     check_float_warp_k6(device)
     total = {k: 0 for k in KERNELS}
     for name in OPTION_GROUPS:
@@ -2760,10 +2942,12 @@ LANCZOS_SHAPES = [((960, 1280), (192, 640)), ((375, 1242), (192, 640)),
 HTTP_REQUESTS = 16
 
 
-def lung_picture(k, h=FRAME_H, w=FRAME_W):
-    """A smooth RGB texture sliding 2 px a frame, with noise."""
+def lung_picture(k, h=None, w=None):
+    """A smooth RGB texture sliding 2 px a frame, with noise (FRAME_H x
+    FRAME_W unless given)."""
     import numpy as np
 
+    h, w = h or FRAME_H, w or FRAME_W
     rng = np.random.default_rng(100 + k)
     ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
     pix = np.empty((h, w, 3), np.float32)
@@ -3192,16 +3376,19 @@ def check_file_tools(root, lung, ckpt, device):
 
 
 @phase("files and serving")
-def phase_files(ckpt, device="cuda"):
+def phase_files(ckpt, device="cuda", root=None):
     """Phase 12: ``check_host_routines``, ``check_file_training``,
     ``check_logged_images``, ``check_http``, ``check_artifacts``,
-    ``check_file_tools``. -> (host records, host call counts, HTTP
+    ``check_file_tools``, in ``root`` (kept for phase 13), or in a
+    temporary directory. -> (host records, host call counts, HTTP
     latencies, kernel launches of the phase)."""
     from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
     from unsupervised_pose_estimation_tpu_torch.ops.kernels import _lib
 
     records, calls = check_host_routines()
-    root = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    keep = root is not None
+    root = root or tempfile.mkdtemp(prefix="chip_smoke_files_")
+    os.makedirs(root, exist_ok=True)
     try:
         K.reset_counts()
         lung, log_dir = check_file_training(root, device)
@@ -3213,11 +3400,433 @@ def phase_files(ckpt, device="cuda"):
         check_artifacts(root, device)
         check_file_tools(root, lung, ckpt, device)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
     print(f"  files phase launches {launches}; {card_line()}", flush=True)
     if device == "cuda" and (launches["warp_reproj_loss_bwd"] != 32):
         raise AssertionError(f"files phase launches {launches}")
     return records, calls, latencies, launches
+
+
+# Phase 13: the last host routes, with PIL and matplotlib blocked: the
+# scene_points TIFF reader (native LZW), the JPEG codec, the host jitter
+# and the trajectory plot, through the entry points that take them.
+BLOCKED = ("PIL", "matplotlib")
+PIL_FIXTURES = os.path.join("tests", "data", "pil")
+HOST_ROUTINES_13 = {
+    "jpeg_entropy": dict(
+        replaces="PIL's JPEG decoder (libjpeg-turbo), its Huffman decoding"),
+    "jpeg_pixels": dict(
+        replaces="PIL's JPEG decoder (libjpeg-turbo), its integer IDCT, "
+                 "upsampling and YCbCr to RGB"),
+    "tiff_lzw": dict(
+        replaces="PIL's TIFF decoder (libtiff), its LZW decoding"),
+}
+JITTER_H, JITTER_W = 192, 640
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Host routine calls in the body are checks, not the routes': the
+    counts are put back after it."""
+    from unsupervised_pose_estimation_tpu_torch.ops.kernels import _lib
+
+    saved = _lib.host_counts()
+    try:
+        yield
+    finally:
+        with _lib._lock:
+            _lib.HOST_CALLS.update(saved)
+
+
+@contextlib.contextmanager
+def blocked_imports(names=BLOCKED):
+    """Make ``import`` of each of ``names`` (and their submodules) fail
+    while the body runs."""
+    saved = {k: v for k, v in sys.modules.items()
+             if k in names or k.startswith(tuple(n + "." for n in names))}
+    for k in saved:
+        del sys.modules[k]
+    for n in names:
+        sys.modules[n] = None
+    try:
+        yield
+    finally:
+        for n in names:
+            del sys.modules[n]
+        sys.modules.update(saved)
+
+
+def lzw_literal(data: bytes) -> bytes:
+    """TIFF LZW of ``data`` in literal codes only, a Clear code before
+    every 250 (so the code width stays 9 bits), then End of Information."""
+    import numpy as np
+
+    b = np.frombuffer(data, np.uint8).astype(np.uint16)
+    k = 250
+    groups = -(-len(b) // k)
+    codes = np.full((groups, k + 1), 256, np.uint16)
+    codes[:, 1:].flat[:len(b)] = b
+    codes = codes.ravel()[:len(b) + groups]
+    codes = np.r_[codes, 257]
+    bits = (codes[:, None] >> np.arange(8, -1, -1)) & 1
+    return np.packbits(bits.astype(np.uint8).ravel()).tobytes()
+
+
+def scene_points_tiff(depth) -> bytes:
+    """A 1-sample float32 TIFF (II, one LZW strip) of ``depth`` (H, W)."""
+    import struct
+
+    h, w = depth.shape
+    strip = lzw_literal(depth.astype("<f4").tobytes())
+    entries = [(256, 4, w), (257, 4, h), (258, 3, 32), (259, 3, 5),
+               (262, 3, 1), (273, 4, 8), (277, 3, 1), (278, 4, h),
+               (279, 4, len(strip)), (339, 3, 3)]
+    pad = b"\x00" * (len(strip) & 1)
+    ifd = struct.pack("<H", len(entries)) + b"".join(
+        struct.pack("<HHI", tag, kind, 1)
+        + struct.pack("<I" if kind == 4 else "<Hxx", value)
+        for tag, kind, value in entries) + b"\x00" * 4
+    return b"II*\x00" + struct.pack("<I", 8 + len(strip) + len(pad)) + \
+        strip + pad + ifd
+
+
+def scene_depth(k):
+    """A FRAME_H x FRAME_W depth plane of 5-60, smooth with noise,
+    float32."""
+    import numpy as np
+
+    h, w = FRAME_H, FRAME_W
+    rng = np.random.default_rng(300 + k)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    depth = 30 + 20 * np.sin(0.004 * xs + 0.5 * k) + 8 * np.cos(0.006 * ys)
+    return (depth + rng.normal(0, 0.05, (h, w))).astype(np.float32)
+
+
+def check_tiff_routes(root, lung, ckpt, device):
+    """(a) Phase 12's lung tree gains scene_points TIFFs (1024x1280
+    float32, LZW) for its validation lines; cli.train for two steps with
+    the host jitter (--device_augment off) and a validation whose depth
+    metrics come from the TIFFs, the batches checked against the host's
+    items; cli.evaluate_depth over those lines with their TIFF depth as
+    ground truth. -> kernel launches of the trainer's run."""
+    import numpy as np
+
+    from unsupervised_pose_estimation_tpu_torch.cli import evaluate_depth
+    from unsupervised_pose_estimation_tpu_torch.cli.train import main as train
+    from unsupervised_pose_estimation_tpu_torch.data.datasets import \
+        make_dataset
+    from unsupervised_pose_estimation_tpu_torch.data.split import readlines
+    from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+    from unsupervised_pose_estimation_tpu_torch.train import loop
+
+    split_dir = os.path.join(root, "splits")
+    val = readlines(os.path.join(split_dir, "lung_files", "val_files.txt"))
+    start = time.perf_counter()
+    planes = [scene_points_tiff(scene_depth(k)) for k in range(2)]
+    for i, line in enumerate(val):
+        folder, idx, side = line.split()
+        gt = os.path.join(lung, folder, "image_02", "data", "groundtruth")
+        os.makedirs(gt, exist_ok=True)
+        with open(os.path.join(gt, f"scene_points{int(idx) - 1:06d}.tiff"),
+                  "wb") as f:
+            f.write(planes[i % 2])
+    print(f"  {len(val)} scene_points TIFFs of {FRAME_W}x{FRAME_H} float32 "
+          f"(LZW, {len(planes[0]) / 2**20:.2f} MiB each) in "
+          f"{time.perf_counter() - start:.2f} s", flush=True)
+    args = TRAIN_ARGS + ["--batch_size", str(B), "--height", str(H),
+                         "--width", str(W), "--dataset", "endovis",
+                         "--split", "lung_files", "--split_dir", split_dir,
+                         "--data_path", lung, "--steps_per_epoch", "2",
+                         "--device_augment"]
+    log_dir = os.path.join(root, "tiff_run")
+    seen = []
+    undo = recording_steps(loop, seen)
+    K.reset_counts()
+    start = time.perf_counter()
+    try:
+        trainer = train(args + ["--log_dir", log_dir], device=device)
+    finally:
+        undo()
+    seconds = time.perf_counter() - start
+    launches = K.counts()
+    if len(seen) != 2 or "color_aug" not in seen[0][1]:
+        raise AssertionError(f"{len(seen)} steps, batch keys "
+                             f"{sorted(seen[0][1]) if seen else None}")
+    check_batches_against_host(seen, trainer.train_loader)
+    with open(os.path.join(log_dir, "mdp", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    depth = [r for r in records if r.get("mode") == "val"
+             and any(k.startswith("de/") for k in r)]
+    if not depth or not all(math.isfinite(v) for k, v in depth[0].items()
+                            if k.startswith("de/")):
+        raise AssertionError(f"no finite validation depth metrics: "
+                             f"{records}")
+    if device == "cuda" and not all(
+            launches[n] for n in ("warp_reproj_loss",
+                                  "warp_reproj_loss_bwd", "reproj_loss")):
+        raise AssertionError(f"trainer launches {launches}")
+    metrics = {k: round(v, 4) for k, v in depth[0].items()
+               if k.startswith("de/")}
+    print(f"  cli.train with the host jitter: 2 steps in {seconds:.2f} s "
+          f"(batches equal to the host's items, color_aug included), "
+          f"validation depth metrics from the TIFFs {metrics}, launches "
+          f"{launches}", flush=True)
+
+    # cli.evaluate_depth: the validation lines' frames, their TIFF depth as
+    # gt_depths.npz (read through the dataset, as the trainer reads it)
+    eval_dir = os.path.join(root, "eval_splits", "tiff_gt")
+    os.makedirs(eval_dir)
+    with open(os.path.join(eval_dir, "test_files.txt"), "w") as f:
+        f.write("".join(line + "\n" for line in val))
+    ds = make_dataset("endovis", data_path=lung, filenames=val, height=H,
+                      width=W, frame_idxs=[0], is_train=False,
+                      load_depth=True, native=device == "cuda")
+    maps = [ds.get_item(i)["depth_gt"] for i in range(len(val))]
+    np.savez(os.path.join(eval_dir, "gt_depths.npz"),
+             data=np.stack(maps))
+    start = time.perf_counter()
+    row = evaluate_depth.main(
+        ["--load_weights_folder", ckpt, "--height", str(H), "--width",
+         str(W), "--batch_size", str(B), "--dataset", "endovis",
+         "--data_path", lung, "--split_dir", os.path.dirname(eval_dir),
+         "--eval_split", "tiff_gt", "--eval_mono"], device=device)
+    bad = [k for k, v in row.items() if not math.isfinite(v)]
+    if bad or len(maps) != len(val) or maps[0].shape != (FRAME_H, FRAME_W):
+        raise AssertionError(f"evaluate_depth on the TIFFs: {row}")
+    print(f"  cli.evaluate_depth over {len(val)} lung frames with the TIFF "
+          f"depth: {time.perf_counter() - start:.2f} s, abs_rel "
+          f"{row.get('abs_rel', float('nan')):.4f}", flush=True)
+    return launches
+
+
+def check_trajectory_plot(root, ckpt, device):
+    """(b) cli.evaluate_pose at its defaults (the trajectory plot on):
+    vo.png decodes to 720x960 RGB holding pixels of both lines' colours."""
+    import numpy as np
+
+    from unsupervised_pose_estimation_tpu_torch.cli import evaluate_pose
+    from unsupervised_pose_estimation_tpu_torch.data.png import read_png
+    from unsupervised_pose_estimation_tpu_torch.eval.evaluate_pose import \
+        COLORS
+
+    b, h, w, n = EVAL_SMALL
+    out = os.path.join(root, "pose_out")
+    os.makedirs(out)
+    args = eval_args(ckpt, write_split(root, h, w, n), b, h, w)
+    row = evaluate_pose.main(args + ["--eval_out_dir", out], device=device)
+    img = read_png(os.path.join(out, "vo.png"), native=True)
+    counts = [int(np.all(img == np.array(c, np.uint8), -1).sum())
+              for c in COLORS]
+    if img.shape != (720, 960, 3) or min(counts) == 0 or \
+            not all(math.isfinite(v) for v in row.values()):
+        raise AssertionError(f"vo.png {img.shape}, pixels of C0/C1 {counts}, "
+                             f"row {row}")
+    print(f"  cli.evaluate_pose at its defaults: vo.png 960x720 with "
+          f"{counts[0]} C0 and {counts[1]} C1 pixels, row {json.dumps(row)}",
+          flush=True)
+
+
+def check_jpeg_routes(root, lung, ckpt, device):
+    """(c) cli.test_simple on two 1280x1024 JPEGs written with encode_jpeg
+    (the _disp.jpg it writes decoded back natively); one HTTP POST of a
+    1280x1024 JPEG to a float32 engine, answered with the engine's
+    disparity of the local decode; -> the frames' JPEG bytes."""
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    from unsupervised_pose_estimation_tpu_torch.cli import test_simple
+    from unsupervised_pose_estimation_tpu_torch.data.jpeg import (
+        decode_jpeg, encode_jpeg, read_jpeg)
+    from unsupervised_pose_estimation_tpu_torch.serve import (
+        InferenceEngine, MicroBatcher, decode_request, make_http_server)
+
+    images = os.path.join(root, "jpeg_images")
+    os.makedirs(images)
+    start = time.perf_counter()
+    bodies = [encode_jpeg(lung_picture(k)) for k in range(2)]
+    encode_s = (time.perf_counter() - start) / 2
+    for i, body in enumerate(bodies):
+        with open(os.path.join(images, f"f{i}.jpg"), "wb") as f:
+            f.write(body)
+    test_simple.main(["--image_path", images, "--model_path", ckpt,
+                      "--height", str(H), "--width", str(W), "--ext", "jpg"],
+                     device=device)
+    for i in range(2):
+        with uncounted():
+            disp = read_jpeg(os.path.join(images, f"f{i}_disp.jpg"),
+                             native=True)
+        npy = np.load(os.path.join(images, f"f{i}_disp.npy"))
+        if disp.shape != (FRAME_H, FRAME_W, 3) or npy.shape != (1, 1, H, W):
+            raise AssertionError(f"test_simple on JPEGs: {disp.shape}, "
+                                 f"{npy.shape}")
+    print(f"  cli.test_simple on 2 JPEGs of {FRAME_W}x{FRAME_H} (encode_jpeg "
+          f"{1e3 * encode_s:.1f} ms a frame): .npy and _disp.jpg decoded "
+          f"back natively", flush=True)
+
+    engine = InferenceEngine(smoke_options(dtype="float32"), max_batch=8,
+                             device=device)
+    served = []
+    real = engine.predict
+
+    def recording(batch):
+        out = real(batch)
+        served.extend(zip(batch, out))
+        return out
+
+    engine.predict = recording
+    batcher = MicroBatcher(engine, max_delay_ms=5.0)
+    server = make_http_server(batcher)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+        req = urllib.request.Request(url, data=bodies[0], method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            answer = np.load(io.BytesIO(resp.read()))
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+        thread.join(timeout=30)
+    with uncounted():
+        feed = decode_request(bodies[0], H, W, native=True)
+    # the engine's call that served it (a rerun may take another cuDNN
+    # algorithm) on the feed the server decoded, which is the local decode
+    if len(served) != 1 or not np.array_equal(served[0][0], feed) or \
+            not np.array_equal(answer, served[0][1]):
+        raise AssertionError("the HTTP answer to a JPEG is not the engine's "
+                             "disparity of the local decode")
+    print("  HTTP POST of a 1280x1024 JPEG: the feed the server decoded "
+          "bit-equal to the local decode, the answer to the engine's "
+          "disparity of it", flush=True)
+    with uncounted():
+        same = np.array_equal(decode_jpeg(bodies[0], native=True),
+                              decode_jpeg(bodies[0]))
+    if not same:
+        raise AssertionError("native JPEG decode differs from numpy at "
+                             "1280x1024")
+    return bodies
+
+
+def check_fixtures():
+    """(d) Every file of tests/data/pil through both routes (JPEG and TIFF:
+    the decoded array; PNG: to_rgb and the alpha) and every jitter case
+    against PIL's results in its manifest. -> files checked."""
+    import hashlib
+
+    import numpy as np
+
+    from unsupervised_pose_estimation_tpu_torch.data import (augment, jpeg,
+                                                             png, tiff)
+
+    def record(arr):
+        arr = np.ascontiguousarray(arr)
+        return dict(shape=list(arr.shape), dtype=arr.dtype.name,
+                    sha256=hashlib.sha256(arr.tobytes()).hexdigest())
+
+    with open(os.path.join(PIL_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, want in manifest["files"].items():
+        with open(os.path.join(PIL_FIXTURES, name), "rb") as f:
+            data = f.read()
+        for native in (True, False):
+            if name.endswith(".jpg"):
+                got = {"array": record(jpeg.decode_jpeg(data, native))}
+            elif name.endswith(".tiff"):
+                got = {"array": record(tiff.decode_tiff(data, native))}
+            else:
+                pix = png.decode_png(data, native)
+                got = {"rgb": record(png.to_rgb(pix))}
+                if "alpha" in want:
+                    got["alpha"] = record(pix[..., -1])
+            if got != want:
+                raise AssertionError(f"{name} (native {native}) differs from "
+                                     f"PIL's: {got} != {want}")
+    for case in manifest["jitter"]:
+        b, c, sat, hue, auto = case["params"]
+        frame = np.random.default_rng(case["seed"]).integers(
+            0, 256, tuple(case["shape"]) + (3,), np.uint8)
+        if case["flat"] is not None:
+            frame[..., case["flat"][0]] = case["flat"][1]
+        out = augment.apply_augment(frame, augment.AugmentParams(
+            True, b, c, sat, hue, auto))
+        if record(out) != case["output"]:
+            raise AssertionError(f"jitter case {case['seed']} differs from "
+                                 "PIL's")
+    print(f"  {len(manifest['files'])} fixtures (JPEG, TIFF, PNG) through "
+          f"both routes and {len(manifest['jitter'])} jitter cases equal to "
+          f"PIL's results (Pillow {manifest['pillow']}, manifest)",
+          flush=True)
+    return len(manifest["files"])
+
+
+def host_timings(jpeg_body):
+    """(e) Host ms per frame: JPEG decode at 1280x1024 and the scene_points
+    read at 1024x1280, native and numpy (the two bit-equal); the host
+    jitter at 640x192. -> host records."""
+    import numpy as np
+
+    from unsupervised_pose_estimation_tpu_torch.data import augment, jpeg
+    from unsupervised_pose_estimation_tpu_torch.data.tiff import \
+        read_scene_points
+
+    jn_ms, got = host_ms(lambda: jpeg.decode_jpeg(jpeg_body, native=True), 5)
+    jp_ms, want = host_ms(lambda: jpeg.decode_jpeg(jpeg_body), 1)
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_tiff_"),
+                        "scene_points000000.tiff")
+    try:
+        with open(path, "wb") as f:
+            f.write(scene_points_tiff(scene_depth(0)))
+        tn_ms, t_got = host_ms(lambda: read_scene_points(path, True), 5)
+        tp_ms, t_want = host_ms(lambda: read_scene_points(path), 1)
+    finally:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    if not (np.array_equal(got, want) and np.array_equal(t_got, t_want)
+            and np.array_equal(t_got, scene_depth(0))):
+        raise AssertionError("native and numpy host routes differ")
+    frame = lung_picture(3, JITTER_H, JITTER_W)
+    params = augment.AugmentParams(True, 1.1, 0.9, 1.15, 0.05, True)
+    a_ms, _ = host_ms(lambda: augment.apply_augment(frame, params), 5)
+    print(f"  host ms per frame: JPEG decode {FRAME_W}x{FRAME_H} {jn_ms:.2f} "
+          f"native, {jp_ms:.2f} numpy; scene_points read {FRAME_W}x"
+          f"{FRAME_H} (LZW) {tn_ms:.2f} native, {tp_ms:.2f} numpy; host "
+          f"jitter {JITTER_W}x{JITTER_H} {a_ms:.2f} numpy; {card_line()}",
+          flush=True)
+    jpeg_rec = dict(ms=jn_ms, numpy_ms=jp_ms,
+                    shape=f"{FRAME_W}x{FRAME_H} JPEG decode (both stages)")
+    return ({"jpeg_entropy": jpeg_rec, "jpeg_pixels": jpeg_rec,
+             "tiff_lzw": dict(ms=tn_ms, numpy_ms=tp_ms,
+                              shape=f"{FRAME_W}x{FRAME_H} scene_points read")},
+            dict(jitter_ms=a_ms))
+
+
+@phase("last host routes")
+def phase_host_routes(root, ckpt, device="cuda"):
+    """Phase 13, with PIL and matplotlib blocked: ``check_tiff_routes``,
+    ``check_trajectory_plot``, ``check_jpeg_routes`` (the routes: their
+    host routine calls are counted), then ``check_fixtures`` and
+    ``host_timings``. -> (host records, route call counts of the new
+    routines, kernel launches)."""
+    from unsupervised_pose_estimation_tpu_torch.ops.kernels import _lib
+
+    lung = os.path.join(root, "lung")
+    with blocked_imports():
+        _lib.reset_counts()
+        launches = check_tiff_routes(root, lung, ckpt, device)
+        check_trajectory_plot(root, ckpt, device)
+        bodies = check_jpeg_routes(root, lung, ckpt, device)
+        calls = {n: _lib.host_counts()[n] for n in HOST_ROUTINES_13}
+        check_fixtures()
+        records, _ = host_timings(bodies[1])
+    print(f"  host routine calls on the routes {calls}; {card_line()}",
+          flush=True)
+    if device == "cuda" and not all(calls.values()):
+        raise AssertionError(f"host routines not called on the routes: "
+                             f"{calls}")
+    return records, calls, launches
 
 
 def main() -> int:
@@ -3270,8 +3879,14 @@ def main() -> int:
         add(phase_options())
         add(phase_gan())
         add(phase("mesh")(phase_mesh)())
-        host, calls, latencies, files_launches = phase_files(ckpt)
+        files = os.path.join(work, "files")
+        host, calls, latencies, files_launches = phase_files(ckpt,
+                                                             root=files)
         add(files_launches)
+        host13, calls13, launches13 = phase_host_routes(files, ckpt)
+        host.update(host13)
+        calls.update(calls13)
+        add(launches13)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     missing = [name for name, n in launches.items() if n == 0]
@@ -3282,10 +3897,11 @@ def main() -> int:
     if idle:
         raise AssertionError(f"host routines not called on the file "
                              f"routes: {idle}")
+    routines = {**HOST_ROUTINES, **HOST_ROUTINES_13}
     print(json.dumps({"host_routines": [
         dict(name=name, route="native", source=HOST_SOURCE,
-             replaces=HOST_ROUTINES[name]["replaces"], calls=calls[name],
-             max_abs_err=0, **host[name]) for name in HOST_ROUTINES],
+             replaces=routines[name]["replaces"], calls=calls[name],
+             max_abs_err=0, **host[name]) for name in routines],
         "http_ms": {dtype: dict(p50=p50, p99=p99)
                     for dtype, (p50, p99) in latencies.items()}}),
         flush=True)

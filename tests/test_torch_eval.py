@@ -278,9 +278,9 @@ def test_checkpoint_evaluates_at_either_dtype(setup, tmp_path, saved,
 
 
 def test_evaluation_without_pil_or_matplotlib(setup, monkeypatch, tmp_path):
-    """matplotlib is imported only by the route that needs it, and its
-    absence names the route that works without it; the benchmark split's
-    16-bit PNGs are written without PIL (data.png)."""
+    """Neither is imported: the trajectory plot is drawn without
+    matplotlib, the benchmark split's 16-bit PNGs are written without PIL
+    (data.png)."""
     monkeypatch.setitem(sys.modules, "PIL", None)
     monkeypatch.setitem(sys.modules, "matplotlib", None)
     disps = tmp_path / "disps.npy"
@@ -293,11 +293,14 @@ def test_evaluation_without_pil_or_matplotlib(setup, monkeypatch, tmp_path):
                                 f"{idx:010d}.png"))
         assert depth16.shape == (352, 1216)
         assert (depth16 == int(ED.STEREO_SCALE_FACTOR / 0.5 * 256)).all()
-    with pytest.raises(ImportError, match="eval_pose_trajectory"):
-        EP.plot_trajectory(np.zeros((3, 3)), np.ones((3, 3)),
-                           str(tmp_path / "vo.png"))
-    # the default routes run without either
+    EP.plot_trajectory(np.zeros((3, 3)), np.ones((3, 3)),
+                       str(tmp_path / "vo.png"))
+    assert read_png(str(tmp_path / "vo.png")).shape == (720, 960, 3)
+    # the default routes run without either, the plot included
+    (tmp_path / "o").mkdir()
     row = EP.evaluate(dataclasses.replace(options(setup["root"]),
-                                          eval_pose_trajectory=False),
+                                          eval_pose_trajectory=True,
+                                          eval_out_dir=str(tmp_path / "o")),
                       device="cpu")
     assert np.isfinite(row["ate_mean"])
+    assert (tmp_path / "o" / "vo.png").is_file()

@@ -108,17 +108,59 @@ def test_palette_matches_pil():
 
 def test_16bit_grey_matches_pil():
     """decode_png of I;16 is np.asarray(Image.open(f)): KITTI's annotated
-    depth maps, and random values."""
+    depth maps, and random values; as a colour image (to_rgb,
+    decode_image) each value clips to 255, as convert("RGB") does."""
     rng = np.random.default_rng(6)
     depth = textured(rng, 370, 1224, 1)[..., 0].astype(np.uint16) * 200
-    for arr in (depth, rng.integers(0, 65536, (37, 51), dtype=np.uint16)):
+    edges = np.array([[0, 1, 100, 255, 256, 300, 65535]], np.uint16)
+    for arr in (depth, rng.integers(0, 65536, (37, 51), dtype=np.uint16),
+                edges):
         data = pil_png(Image.fromarray(arr))
         with Image.open(io.BytesIO(data)) as ref:
             assert ref.mode == "I;16"
             want = np.asarray(ref)
+            want_rgb = np.asarray(ref.convert("RGB"))
         got = png.decode_png(data)
         assert got.dtype == np.uint16
         np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(png.to_rgb(got), want_rgb)
+        np.testing.assert_array_equal(png.decode_image(data), want_rgb)
+    assert png.to_rgb(edges)[0, :, 0].tolist() == [0, 1, 100, 255, 255, 255,
+                                                   255]
+
+
+def test_rare_formats_match_pil():
+    """Every colour type at every bit depth, plain and Adam7-interlaced,
+    at ragged sizes, and the rare-PNG fixtures: to_rgb(decode_png) is
+    convert("RGB") and the alpha convert("RGBA")'s; the samples are PIL's
+    (grey below 8 bits scaled, 16-bit colour and alpha by their high
+    bytes, 16-bit grey kept)."""
+    from tests.make_pil_fixtures import ALL_PNG_FORMATS, png_case
+
+    rng = np.random.default_rng(13)
+    datas = [p.read_bytes() for p in sorted(
+        (ROOT / "tests" / "data" / "pil").glob("*.png"))]
+    assert len(datas) == 24
+    for h, w in ((1, 1), (5, 3), (9, 17), (16, 16)):
+        for color, depth in ALL_PNG_FORMATS:
+            for interlace in (0, 1):
+                datas.append(png_case(rng, color, depth, interlace, h, w))
+    for data in datas:
+        got = png.decode_png(data)
+        with Image.open(io.BytesIO(data)) as img:
+            img.load()
+            np.testing.assert_array_equal(png.to_rgb(got),
+                                          np.asarray(img.convert("RGB")))
+            if img.mode in ("RGBA", "LA") or "transparency" in img.info \
+                    and img.mode == "P":
+                np.testing.assert_array_equal(
+                    got[..., -1], np.asarray(img.convert("RGBA"))[..., 3])
+            if img.mode in ("RGB", "RGBA", "L", "I;16") and got.shape == \
+                    np.asarray(img).shape:
+                np.testing.assert_array_equal(got, np.asarray(img))
+            elif img.mode == "RGBA":    # 16-bit grey + alpha
+                np.testing.assert_array_equal(
+                    got, np.asarray(img)[..., [0, 3]])
 
 
 def test_encoder_round_trips_each_filter_type():
@@ -164,14 +206,15 @@ def with_filter_byte(data, row, value):
 
 
 def test_refuses_what_it_does_not_read():
+    """What is not a PNG format: interlace method 2, RGB at 4 bits, a
+    16-bit palette; a bad CRC, signature or filter type."""
     data = png.encode_png(np.zeros((4, 4, 3), np.uint8))
-    with pytest.raises(ValueError, match="interlace"):
-        png.decode_png(with_ihdr(data, interlace=1))
-    with pytest.raises(ValueError, match="colour type 2 at bit depth 16"):
-        png.decode_png(with_ihdr(data, depth=16))
-    one_bit = pil_png(Image.fromarray(np.eye(8, dtype=bool)))
-    with pytest.raises(ValueError, match="colour type 0 at bit depth 1"):
-        png.decode_png(one_bit)
+    with pytest.raises(ValueError, match="interlace method 2"):
+        png.decode_png(with_ihdr(data, interlace=2))
+    with pytest.raises(ValueError, match="colour type 2 at bit depth 4"):
+        png.decode_png(with_ihdr(data, depth=4))
+    with pytest.raises(ValueError, match="colour type 3 at bit depth 16"):
+        png.decode_png(with_ihdr(data, color=3, depth=16))
     broken = bytearray(data)
     broken[40] ^= 1  # inside the IDAT body
     with pytest.raises(ValueError, match="CRC"):
@@ -261,6 +304,13 @@ def test_native_routines_match_numpy(gcc_library):
         np.testing.assert_array_equal(png.decode_png(data, native=True),
                                       png.decode_png(data))
         n += 1
+    # the rare formats: a call per Adam7 pass that holds pixels
+    for name in ("c0_d1.png", "c2_d16.png", "c6_d16_adam7.png",
+                 "c3_d4_adam7.png"):
+        data = (ROOT / "tests" / "data" / "pil" / name).read_bytes()
+        np.testing.assert_array_equal(png.decode_png(data, native=True),
+                                      png.decode_png(data))
+        n += 7 if "adam7" in name else 1
     for (h, w), (out_h, out_w) in LANCZOS_SHAPES:
         img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
         np.testing.assert_array_equal(

@@ -121,3 +121,47 @@ def test_mesh_modules_are_among_those_checked():
                  "data.pipeline", "models.layers", "train.state",
                  "train.checkpoint", "train.loop", "cli.train"):
         assert f"{port.__name__}.{name}" in modules, name
+
+
+def test_last_host_routes_run_without_pil_or_matplotlib(tmp_path):
+    """With PIL and matplotlib unimportable, in a fresh process: a
+    scene_points TIFF read (LZW and deflate), a JPEG decode and encode
+    (decode_image included), the host jitter, plot_trajectory (vo.png
+    read back) and rare-PNG decodes (Adam7, 1-bit, 16-bit RGBA)."""
+    code = f"""
+import sys
+for name in ("PIL", "matplotlib"):
+    sys.modules[name] = None
+from pathlib import Path
+import numpy as np
+from unsupervised_pose_estimation_tpu_torch.data import augment, jpeg, png
+from unsupervised_pose_estimation_tpu_torch.data.tiff import read_scene_points
+from unsupervised_pose_estimation_tpu_torch.eval.evaluate_pose import \\
+    plot_trajectory
+fixtures = Path({str(ROOT / "tests" / "data" / "pil")!r})
+for name in ("f32_tiff_lzw.tiff", "f32_tiff_deflate.tiff"):
+    assert read_scene_points(str(fixtures / name)).dtype == np.float32
+for name in ("prog_420.jpg", "grey_base.jpg", "base_411.jpg"):
+    data = (fixtures / name).read_bytes()
+    assert png.decode_image(data).shape == (35, 51, 3)
+rgb = np.random.default_rng(0).integers(0, 256, (20, 30, 3), np.uint8)
+assert jpeg.decode_jpeg(jpeg.encode_jpeg(rgb)).shape == (20, 30, 3)
+out = augment.apply_augment(rgb, augment.AugmentParams(
+    True, 1.1, 0.9, 1.2, 0.05, True))
+assert out.shape == rgb.shape and out.dtype == np.uint8
+walk = np.cumsum(np.ones((6, 3)), 0)
+plot_trajectory(walk, walk * 2, {str(tmp_path / "vo.png")!r})
+assert png.read_png({str(tmp_path / "vo.png")!r}).shape == (720, 960, 3)
+for name in ("c0_d1.png", "c6_d16_adam7.png", "c3_d2_adam7.png"):
+    assert png.to_rgb(png.read_png(str(fixtures / name))).shape == \\
+        (13, 21, 3)
+leaked = [m for m in sys.modules if m.split(".")[0] in ("PIL", "matplotlib")
+          and sys.modules[m] is not None]
+assert not leaked, leaked
+print("ok")
+"""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")

@@ -42,6 +42,7 @@ from unsupervised_pose_estimation_tpu_torch.cli import test_simple as TS
 from unsupervised_pose_estimation_tpu_torch.config import Options
 from unsupervised_pose_estimation_tpu_torch.convert import from_jax
 from unsupervised_pose_estimation_tpu_torch.data import datasets
+from unsupervised_pose_estimation_tpu_torch.data.jpeg import encode_jpeg
 from unsupervised_pose_estimation_tpu_torch.data.png import (encode_png,
                                                              read_png,
                                                              write_png)
@@ -165,18 +166,23 @@ def test_http_png_post_matches_engine(engine, http, monkeypatch):
 
 
 def test_http_errors(http, monkeypatch):
-    """A broken PNG and, without PIL, a JPEG get a 500 naming the fault; an
-    unknown path a 404."""
+    """A broken PNG, a truncated JPEG and, without PIL, a BMP get a 500
+    naming the fault; an unknown path a 404."""
     with pytest.raises(urllib.error.HTTPError) as err:
         post(http, encode_png(picture(0, 8, 8))[:-20])
     assert err.value.code == 500 and "PNG" in err.value.reason
     buf = io.BytesIO()
     Image.fromarray(picture(1, 16, 16)).save(buf, "JPEG")
+    bmp = io.BytesIO()
+    Image.fromarray(picture(1, 16, 16)).save(bmp, "BMP")
     monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(urllib.error.HTTPError) as err:
-        post(http, buf.getvalue())
+        post(http, buf.getvalue()[:-100])
+    assert err.value.code == 500 and "JPEG" in err.value.reason
+    with pytest.raises(urllib.error.HTTPError) as err:
+        post(http, bmp.getvalue())
     assert err.value.code == 500
-    assert "PNG" in err.value.reason and "PIL" in err.value.reason
+    assert "JPEG" in err.value.reason and "PIL" in err.value.reason
     with pytest.raises(urllib.error.HTTPError) as err:
         post(http, b"", path="/other")
     assert err.value.code == 404
@@ -405,5 +411,7 @@ def test_card_routes_need_no_pil_or_matplotlib(carried, tmp_path, engine,
                                         str(tmp_path / "bench"))
     assert read_png(str(tmp_path / "bench" / f"{0:010d}.png")).dtype == \
         np.uint16
-    with pytest.raises(ImportError, match="not a PNG"):
-        serve.decode_request(b"\xff\xd8\xff\xe0 a JPEG", H, W)
+    jpeg_feed = serve.decode_request(encode_jpeg(picture(6, 50, 60)), H, W)
+    assert jpeg_feed.shape == (H, W, 3)
+    with pytest.raises(ImportError, match="neither PNG nor JPEG"):
+        serve.decode_request(b"BM a bitmap", H, W)

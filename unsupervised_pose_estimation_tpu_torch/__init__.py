@@ -13,11 +13,12 @@ processes (``parallel``), the training and validation steps
 (``train.step``), the warp ladder, evaluation (``eval``, ``cli``), depth
 serving (``serve``: ``InferenceEngine``, ``MicroBatcher``, the HTTP front
 end, ``torch.export`` artifacts; ``cli.serve``, ``cli.export_model``), the
-files without PIL (``data.png``, a PNG codec; ``data.resample``, PIL's
-LANCZOS bytes; ``data.jpeg``; ``data.colormap``; each hot loop also a
-native host routine in ``csrc/image_host.cpp``), the frame cache
-(``cli.build_frame_cache``), split files (``data.make_splits``),
-``cli.test_simple``, ``cli.export_gt_depth`` and ``utils``. PIL is
-imported only for JPEG input, the host jitter (``device_augment=False``)
-and the lung layout's scene_points TIFF depth.
+files without PIL (``data.png``, a PNG codec; ``data.jpeg``, a JPEG
+codec; ``data.tiff``, the scene_points TIFF reader; ``data.resample``,
+PIL's LANCZOS bytes; ``data.colormap``; each hot loop also a native host
+routine in ``csrc/image_host.cpp``), the host jitter (``data.augment``),
+the frame cache (``cli.build_frame_cache``), split files
+(``data.make_splits``), ``cli.test_simple``, ``cli.export_gt_depth``,
+the trajectory plot without matplotlib and ``utils``. PIL is imported only
+for image formats other than PNG, JPEG and TIFF (BMP, WebP).
 """

@@ -10,8 +10,9 @@ bytes, ``data.resample``), ``<name>_disp.npy`` (the scaled disparity at the
 min/max depth range) and ``<name>_disp.jpg`` (magma-colour-mapped at the
 input resolution, ``data.colormap`` and ``data.jpeg``); with
 ``--pose_prediction``, the pose of the first two images in
-``rot_trans.csv`` and ``transform.csv``. PNG images are decoded with
-``data.png``; other formats need PIL, imported only for them. It runs on
+``rot_trans.csv`` and ``transform.csv``. PNG and JPEG images are decoded
+with ``data.png`` and ``data.jpeg``; other formats need PIL, imported only
+for them. The ``_disp.jpg`` is Pillow's file byte for byte. It runs on
 the CUDA device (decoding and resizing through the native host routines);
 ``main(argv, device="cpu")`` on the CPU.
 """

@@ -17,12 +17,12 @@ dict of numpy arrays, frames on a leading axis in ``frame_idxs`` order
 
 Items are bit-identical to the reference package's for the same seed. The
 file datasets read their frames from an attached frame cache
-(``data.cache``) when there is one; otherwise they decode PNG frames with
-``data.png`` and resize them with ``data.resample.resize_lanczos`` (PIL's
-bytes, without PIL), through the native host routines when ``native`` is
-set (the trainer and the evaluation set it on a CUDA device) and numpy
-otherwise. PIL is imported only for frames that are not PNG files (JPEG)
-and for the scene_points TIFF depth of the lung layout. The geometric flip
+(``data.cache``) when there is one; otherwise they decode PNG and JPEG
+frames with ``data.png`` and ``data.jpeg`` and resize them with
+``data.resample.resize_lanczos``, and read the lung layout's scene_points
+TIFF depth with ``data.tiff`` (PIL's values, without PIL), through the
+native host routines when ``native`` is set (the trainer and the
+evaluation set it on a CUDA device) and numpy otherwise. The geometric flip
 is a numpy flip (the same bytes as PIL's FLIP_LEFT_RIGHT).
 """
 
@@ -34,9 +34,10 @@ from typing import Optional, Sequence
 import numpy as np
 
 from .augment import AugmentParams, apply_augment
-from .png import pil_image, read_image, read_png
+from .png import read_image, read_png
 from .resample import resize_lanczos, resize_nearest_pil
 from .split import parse_split_line
+from .tiff import read_scene_points
 
 
 class MonoDataset:
@@ -151,16 +152,6 @@ class MonoDataset:
         return item
 
 
-def _read_scene_points_tiff(path: str) -> np.ndarray:
-    """SCARED-style scene_points TIFF -> depth plane (channel 0, top 1024
-    rows)."""
-    Image = pil_image("reading a scene_points TIFF")
-    arr = np.asarray(Image.open(path), np.float32)
-    if arr.ndim == 3:
-        arr = arr[..., 0]
-    return arr[:1024, :]
-
-
 class LungRAWDataset(MonoDataset):
     """Colonoscopy/phantom frames ``<data_path>/<folder>/<10-digit>.png``."""
 
@@ -185,8 +176,8 @@ class LungRAWDataset(MonoDataset):
             self._depth_path(folder, frame_index, side))
 
     def get_depth(self, folder, frame_index, side, do_flip):
-        depth = _read_scene_points_tiff(
-            self._depth_path(folder, frame_index, side))
+        depth = read_scene_points(
+            self._depth_path(folder, frame_index, side), self.native)
         if do_flip:
             depth = np.fliplr(depth)
         return depth

@@ -1,11 +1,13 @@
 """A PNG codec in numpy, in place of PIL's PNG plugin.
 
-``decode_png`` reads the files the datasets, the server and the command-line
-tools take: colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey + alpha)
-and 6 (RGBA) at bit depth 8, and grey at bit depth 16. It checks every
+``decode_png`` reads every PNG that PIL reads: colour types 0 (grey), 2
+(RGB), 3 (palette), 4 (grey + alpha) and 6 (RGBA) at each of their bit
+depths (1, 2, 4, 8 and 16), plain or Adam7-interlaced, with PIL's values:
+grey below 8 bits scaled to 0..255, 16-bit grey kept, 16-bit colour,
+grey + alpha and alpha reduced to their high bytes. It checks every
 chunk's CRC, inflates the IDAT stream with ``zlib`` and reverses the five
-filter types. The unfilter has two routes with the same bytes: the numpy
-one (``unfilter_numpy``), and the native host routine of
+filter types, pass by pass. The unfilter has two routes with the same
+bytes: the numpy one (``unfilter_numpy``), and the native host routine of
 ``csrc/image_host.cpp`` (``native=True``), which entry points on a CUDA
 device take (``ops.kernels._lib.native_route``). ``to_rgb`` is PIL's
 ``convert("RGB")``. ``encode_png`` writes 8-bit grey, grey + alpha, RGB
@@ -13,7 +15,8 @@ and RGBA and 16-bit grey, with one filter type forced on every row when
 asked.
 
 ``decode_image`` is the entry for a file of any format: PNG through
-``decode_png``, anything else through PIL, imported only then.
+``decode_png``, JPEG through ``data.jpeg``, anything else through PIL,
+imported only then.
 """
 
 from __future__ import annotations
@@ -29,9 +32,12 @@ SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PIL's limit (Image.MAX_IMAGE_PIXELS * 2, where it raises
 # DecompressionBombError): a server reads untrusted headers
 MAX_PIXELS = 2 * 89478485
-# colour type -> (channels, bit depths read)
-_COLOR_TYPES = {0: (1, (8, 16)), 2: (3, (8,)), 3: (1, (8,)), 4: (2, (8,)),
-                6: (4, (8,))}
+# colour type -> (channels, bit depths)
+_COLOR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
+                3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7's passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def is_png(data: bytes) -> bool:
@@ -119,20 +125,40 @@ def unfilter_native(raw: np.ndarray, rows: int, stride: int,
     return out
 
 
+def _samples(rows: np.ndarray, width: int, channels: int,
+             depth: int) -> np.ndarray:
+    """Unfiltered scanlines (rows, stride) -> (rows, width, channels)
+    samples: uint16 at depth 16, uint8 otherwise (sub-byte samples
+    unpacked MSB first, not scaled)."""
+    n = width * channels
+    if depth == 16:
+        out = rows.view(">u2")[:, :n].astype(np.uint16)
+    elif depth == 8:
+        out = rows[:, :n]
+    else:
+        bits = np.unpackbits(rows, axis=1)[:, :n * depth].reshape(
+            len(rows), n, depth)
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        out = (bits * weights).sum(axis=-1, dtype=np.uint8)
+    return out.reshape(len(rows), width, channels)
+
+
 def decode_png(data: bytes, native: bool = False) -> np.ndarray:
     """PNG bytes -> pixels: (H, W) grey (uint8, or big-endian 16-bit as
     uint16), (H, W, 2) grey + alpha, (H, W, 3) RGB, (H, W, 4) RGBA; a
     palette image comes back through its palette as (H, W, 3), or (H, W, 4)
-    with the tRNS alphas. ``native`` takes the native unfilter. Raises
-    ``ValueError`` on a malformed file or one it does not read (Adam7
-    interlace, bit depths 1, 2 and 4, 16-bit colour)."""
+    with the tRNS alphas. Grey of 1, 2 and 4 bits is scaled to 0..255;
+    16-bit colour and alpha keep their high bytes, as PIL reads them.
+    ``native`` takes the native unfilter. Raises ``ValueError`` on a
+    malformed file."""
     header = palette = trns = None
     idat = []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3] \
+                .reshape(-1, 3)
         elif kind == b"tRNS":
             trns = np.frombuffer(body, np.uint8)
         elif kind == b"IDAT":
@@ -145,18 +171,22 @@ def decode_png(data: bytes, native: bool = False) -> np.ndarray:
                          f"{MAX_PIXELS} are read)")
     if color not in _COLOR_TYPES or depth not in _COLOR_TYPES[color][1]:
         raise ValueError(f"PNG colour type {color} at bit depth {depth} is "
-                         "not read here (8-bit grey, RGB, palette, grey + "
-                         "alpha, RGBA, and 16-bit grey are)")
-    if interlace != 0:
-        raise ValueError(f"PNG interlace method {interlace} (Adam7) is not "
-                         "read here")
+                         "not a PNG format")
+    if interlace not in (0, 1):
+        raise ValueError(f"PNG interlace method {interlace} is not a PNG "
+                         "method")
     if color == 3 and palette is None:
         raise ValueError("palette PNG has no PLTE chunk")
     channels = _COLOR_TYPES[color][0]
-    bpp = channels * depth // 8
-    stride = width * bpp
+    bits = channels * depth
+    bpp = max(1, bits // 8)
+    passes = []
+    for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if pw > 0 and ph > 0:
+            passes.append((x0, y0, dx, dy, pw, ph, -(-pw * bits // 8)))
     # inflate no more than the rows need
-    need = height * (stride + 1)
+    need = sum(ph * (stride + 1) for *_, ph, stride in passes)
     try:
         raw = zlib.decompressobj().decompress(b"".join(idat), need)
     except zlib.error as err:
@@ -165,11 +195,19 @@ def decode_png(data: bytes, native: bool = False) -> np.ndarray:
     if raw.size < need:
         raise ValueError("PNG image data is shorter than its rows")
     unfilter = unfilter_native if native else unfilter_numpy
-    pix = unfilter(raw, height, stride, bpp)
+    pix = np.empty((height, width, channels),
+                   np.uint16 if depth == 16 else np.uint8)
+    at = 0
+    for x0, y0, dx, dy, pw, ph, stride in passes:
+        rows = unfilter(raw[at:at + ph * (stride + 1)], ph, stride, bpp)
+        pix[y0::dy, x0::dx] = _samples(rows, pw, channels, depth)
+        at += ph * (stride + 1)
     if depth == 16:
-        return pix.reshape(height, width, 2).view(">u2")[..., 0].astype(
-            np.uint16)
-    pix = pix.reshape(height, width, channels)
+        if color == 0:
+            return pix[..., 0]
+        pix = (pix >> 8).astype(np.uint8)
+    elif depth < 8 and color == 0:
+        pix *= 255 // ((1 << depth) - 1)
     if color == 3:
         table = np.zeros((256, 4), np.uint8)
         table[:, 3] = 255
@@ -183,10 +221,14 @@ def decode_png(data: bytes, native: bool = False) -> np.ndarray:
 
 
 def to_rgb(arr: np.ndarray) -> np.ndarray:
-    """8-bit pixels as ``decode_png`` gives them -> (H, W, 3) uint8, as
-    PIL's ``convert("RGB")``: grey replicated, alpha dropped."""
+    """Pixels as ``decode_png`` or ``data.jpeg.decode_jpeg`` give them ->
+    (H, W, 3) uint8, as PIL's ``convert("RGB")``: grey replicated (16-bit
+    grey clipped to 255 first), alpha dropped."""
+    if arr.dtype == np.uint16 and arr.ndim == 2:
+        arr = np.minimum(arr, 255).astype(np.uint8)
     if arr.dtype != np.uint8:
-        raise ValueError(f"to_rgb takes 8-bit pixels, got {arr.dtype}")
+        raise ValueError(f"to_rgb takes 8-bit pixels or 16-bit grey, got "
+                         f"{arr.dtype} {arr.shape}")
     if arr.ndim == 2:
         arr = arr[..., None]
     if arr.ndim != 3 or arr.shape[-1] not in (1, 2, 3, 4):
@@ -269,18 +311,23 @@ def pil_image(what: str):
     except ImportError as err:
         raise ImportError(
             f"{what} needs PIL, which is not installed here; this package "
-            "decodes PNG files itself (data.png), other image formats need "
-            "PIL") from err
+            "decodes PNG and JPEG files itself (data.png, data.jpeg), other "
+            "image formats need PIL") from err
     return Image
 
 
 def decode_image(data: bytes, native: bool = False) -> np.ndarray:
-    """Image file bytes -> (H, W, 3) uint8 RGB: a PNG through
-    ``decode_png`` and ``to_rgb``; any other format through PIL's
-    ``convert("RGB")``, PIL imported only then."""
+    """Image file bytes -> (H, W, 3) uint8 RGB, PIL's
+    ``Image.open(f).convert("RGB")``: a PNG through ``decode_png``, a JPEG
+    through ``data.jpeg.decode_jpeg``, then ``to_rgb``; any other format
+    through PIL, imported only then."""
+    from .jpeg import decode_jpeg, is_jpeg
+
     if is_png(data):
         return to_rgb(decode_png(data, native))
-    Image = pil_image("decoding an image that is not a PNG")
+    if is_jpeg(data):
+        return to_rgb(decode_jpeg(data, native))
+    Image = pil_image("decoding an image that is neither PNG nor JPEG")
     with Image.open(io.BytesIO(data)) as img:
         return np.asarray(img.convert("RGB"), np.uint8)
 

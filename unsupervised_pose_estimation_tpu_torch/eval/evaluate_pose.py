@@ -69,29 +69,130 @@ def predict_pose_sequence(opt: Options, bundle: ModelBundle,
     return np.concatenate(preds, 0)
 
 
+# matplotlib's defaults for ``fig.add_subplot(projection="3d")`` saved at
+# dpi=150: a 6.4 x 4.8 inch figure, the subplot's box, the 3D view
+# (elev 30, azim -60, perspective at focal length 1 from a distance of 10,
+# box aspect 4:4:3), the 2D view limits its ``set_top_view`` gives, the
+# autoscale margins, line width 1.5 pt and the colours C0 and C1.
+PLOT_W, PLOT_H = 960, 720
+_SUBPLOT = (0.125, 0.11, 0.775, 0.77)
+_ELEV, _AZIM, _DIST = 30.0, -60.0, 10.0
+_MARGINS, _VIEW_MARGIN = (0.05, 0.05, 0.0), 1 / 48
+_LINE_PX = 1.5 * 150 / 72
+COLORS = ((0x1F, 0x77, 0xB4), (0xFF, 0x7F, 0x0E))
+
+
+def _limits(points: np.ndarray):
+    """The axes' 3D limits over ``points`` (N, 3), as matplotlib
+    autoscales them: the data's range (a flat one widened by 5%), a margin
+    of 5% on x and y (none on z), then 1/48 more each side."""
+    lims = []
+    for lo, hi, margin in zip(points.min(0), points.max(0), _MARGINS):
+        lo, hi = float(lo), float(hi)
+        if hi - lo <= max(abs(lo), abs(hi)) * 1e-15:
+            lo, hi = ((-0.05, 0.05) if lo == hi == 0
+                      else (lo - 0.05 * abs(lo), hi + 0.05 * abs(hi)))
+        for m in (margin, _VIEW_MARGIN):
+            d = (hi - lo) * m
+            lo, hi = lo - d, hi + d
+        lims.append((lo, hi))
+    return lims
+
+
+def project(points: np.ndarray, lims) -> np.ndarray:
+    """(N, 3) data points -> (N, 2) pixel coordinates (column, row) on the
+    PLOT_W x PLOT_H canvas through matplotlib's default 3D view."""
+    aspect = np.array([4.0, 4.0, 3.0])
+    aspect *= 1.8294640721620434 * 25 / 24 / np.linalg.norm(aspect)
+    world = np.eye(4)
+    for k, (lo, hi) in enumerate(lims):
+        d = (hi - lo) / aspect[k]
+        world[k, k], world[k, 3] = 1 / d, -lo / d
+    elev, azim = np.deg2rad(_ELEV), np.deg2rad(_AZIM)
+    ps = np.array([np.cos(elev) * np.cos(azim), np.cos(elev) * np.sin(azim),
+                   np.sin(elev)])
+    centre = 0.5 * aspect
+    eye = centre + _DIST * ps
+    w = (eye - centre) / np.linalg.norm(eye - centre)
+    u = np.cross([0.0, 0.0, 1.0], w)
+    u /= np.linalg.norm(u)
+    v = np.cross(w, u)
+    view = np.eye(4)
+    view[:3, :3] = [u, v, w]
+    shift = np.eye(4)
+    shift[:3, 3] = -eye
+    b = (-_DIST + _DIST) / (-2 * _DIST)
+    c = -2 * (-_DIST * _DIST) / (-2 * _DIST)
+    persp = np.array([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, b, c],
+                      [0, 0, -1, 0]])
+    m = persp @ view @ shift @ world
+    hom = m @ np.c_[points, np.ones(len(points))].T
+    xy = hom[:2] / hom[3]
+    # the 2D view limits (-0.95, 0.9) / dist on both axes, in the subplot
+    # box made square and centred
+    x0, y0, bw, bh = (_SUBPLOT[0] * PLOT_W, _SUBPLOT[1] * PLOT_H,
+                      _SUBPLOT[2] * PLOT_W, _SUBPLOT[3] * PLOT_H)
+    side = min(bw, bh)
+    x0, y0 = x0 + (bw - side) / 2, y0 + (bh - side) / 2
+    lo, span = -0.95 / _DIST, 1.85 / _DIST
+    col = x0 + (xy[0] - lo) / span * side
+    row = PLOT_H - (y0 + (xy[1] - lo) / span * side)
+    return np.stack([col, row], -1)
+
+
+def _draw_polyline(canvas: np.ndarray, pts: np.ndarray, color) -> None:
+    """Stamp a disc of the line's width at points along each segment of
+    ``pts`` (N, 2) (column, row) on ``canvas`` (H, W, 3), no
+    anti-aliasing."""
+    r = _LINE_PX / 2
+    steps = [np.linspace(0, 1, max(2, int(np.hypot(*(b - a)) * 2) + 2))
+             for a, b in zip(pts[:-1], pts[1:])]
+    dense = np.concatenate([pts[:1]] + [
+        a + (b - a) * t[:, None] for a, b, t in zip(pts[:-1], pts[1:],
+                                                     steps)])
+    k = int(np.ceil(r))
+    dy, dx = np.mgrid[-k:k + 1, -k:k + 1]
+    for off_r, off_c in zip(*np.nonzero(dx ** 2 + dy ** 2 <= r * r)):
+        rows = np.floor(dense[:, 1]).astype(np.int64) + off_r - k
+        cols = np.floor(dense[:, 0]).astype(np.int64) + off_c - k
+        inside = (rows >= 0) & (rows < canvas.shape[0]) & (cols >= 0) & \
+            (cols < canvas.shape[1])
+        canvas[rows[inside], cols[inside]] = color
+
+
+def trajectory_points(gt_xyz: np.ndarray, pred_xyz: np.ndarray):
+    """The two point sets the plot draws: the ground truth, and the
+    prediction scaled by the least-squares factor onto it (float64)."""
+    scale = np.sum(gt_xyz * pred_xyz) / max(np.sum(pred_xyz ** 2), 1e-12)
+    return [np.asarray(gt_xyz, np.float64),
+            np.asarray(pred_xyz * scale, np.float64)]
+
+
 def plot_trajectory(gt_xyz: np.ndarray, pred_xyz: np.ndarray,
                     out_path: str = "vo.png"):
-    """Scale-aligned 3D trajectory plot."""
-    try:
-        import matplotlib
-    except ImportError as err:
-        raise ImportError(
-            "the trajectory plot (eval_pose_trajectory) needs matplotlib, "
-            "which is not installed; pass --eval_pose_trajectory to turn "
-            "the plot off") from err
+    """The scale-aligned 3D trajectories (``trajectory_points``), written to
+    ``out_path`` as a PNG without matplotlib.
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    The points are those the reference package's matplotlib plot draws, and
+    they are projected through matplotlib's default 3D view of them (elev
+    30, azim -60, perspective, box aspect 4:4:3, its autoscaled limits) onto
+    the 960x720 canvas of a default figure saved at dpi=150. The picture
+    differs from matplotlib's: only the two polylines are drawn, in C0 and
+    C1, 1.5 pt wide, without anti-aliasing, on white; there are no panes,
+    grid, axes, ticks, labels or legend. -> the (N, 2) pixel coordinates of
+    each set, ground truth first."""
+    from ..data.png import write_png
 
-    scale = np.sum(gt_xyz * pred_xyz) / max(np.sum(pred_xyz ** 2), 1e-12)
-    pred = pred_xyz * scale
-    fig = plt.figure()
-    ax = fig.add_subplot(projection="3d")
-    ax.plot(gt_xyz[:, 0], gt_xyz[:, 1], gt_xyz[:, 2], label="ground truth")
-    ax.plot(pred[:, 0], pred[:, 1], pred[:, 2], label="predicted")
-    ax.legend()
-    fig.savefig(out_path, dpi=150)
-    plt.close(fig)
+    sets = trajectory_points(gt_xyz, pred_xyz)
+    lims = _limits(np.concatenate(sets))
+    canvas = np.full((PLOT_H, PLOT_W, 3), 255, np.uint8)
+    pixels = []
+    for pts, color in zip(sets, COLORS):
+        px = project(pts, lims)
+        _draw_polyline(canvas, px, color)
+        pixels.append(px)
+    write_png(out_path, canvas)
+    return pixels
 
 
 def evaluate(opt: Options, gt_poses: Optional[np.ndarray] = None,

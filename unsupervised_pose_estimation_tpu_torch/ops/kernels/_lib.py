@@ -34,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 SIGNATURES = {
     "upe_warp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "upe_reproj_loss": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -43,11 +44,15 @@ SIGNATURES = {
     "upe_fetch_corners": [_P] * 8 + [_I] * 7 + [_P],
     "upe_fetch_corners_packed": [_P] * 8 + [_I] * 7 + [_P],
 }
-# The host routines of csrc/image_host.cpp (data.png, data.resample).
+# The host routines of csrc/image_host.cpp (data.png, data.resample,
+# data.jpeg, data.tiff).
 HOST_SIGNATURES = {
     "upe_png_unfilter": [_P, _I, _I, _I, _P],
     "upe_resample_horizontal_u8": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _I],
     "upe_resample_vertical_u8": [_P, _I, _I, _P, _I, _P, _P, _I, _P],
+    "upe_jpeg_entropy": [_P, _P, _P, _P, _P],
+    "upe_jpeg_pixels": [_P, _P, _P, _P],
+    "upe_tiff_lzw": [_P, _L, _P, _L, _P],
 }
 
 # Launches per kernel since the last reset_counts(); a wrapper adds one
@@ -63,7 +68,8 @@ RUNGS = {"v1": 0, "v2": 0, "v3": 0, "v4": 0, "v5": 0, "v6": 0, "v7": 0,
          "v3_wide": 0, "v8": 0, "gather": 0}
 # Calls of the host routines since the last reset_counts().
 HOST_CALLS = {"png_unfilter": 0, "resample_horizontal_u8": 0,
-              "resample_vertical_u8": 0}
+              "resample_vertical_u8": 0, "jpeg_entropy": 0, "jpeg_pixels": 0,
+              "tiff_lzw": 0}
 
 _lock = threading.Lock()
 _lib = None

@@ -8,10 +8,11 @@ requests into shared engine calls, flushing on size or deadline. PyTorch
 runs eagerly, so partial batches are not padded to a compiled shape.
 
   * ``make_http_server`` (stdlib): POST /predict with an image body -> .npy
-    bytes of the float32 disparity; GET /healthz. A PNG body is decoded and
-    resized with ``data.png`` and ``data.resample`` (PIL's bytes, without
-    PIL; the native host routines on a CUDA engine); any other format goes
-    through PIL, imported for that request only.
+    bytes of the float32 disparity; GET /healthz. A PNG or JPEG body is
+    decoded and resized with ``data.png``, ``data.jpeg`` and
+    ``data.resample`` (PIL's bytes, without PIL; the native host routines
+    on a CUDA engine); any other format goes through PIL, imported for
+    that request only.
   * ``export_artifact`` / ``load_artifact``: ``torch.export`` of the
     batched depth forward at a fixed (max_batch, H, W, 3) float32 input,
     with a ``.json`` sidecar of the feed; the artifact loads and runs
@@ -149,8 +150,9 @@ class MicroBatcher:
 def decode_request(body: bytes, height: int, width: int,
                    native: bool = False) -> np.ndarray:
     """An image file's bytes -> the (height, width, 3) uint8 feed: PIL's
-    ``convert("RGB")`` and LANCZOS resize, bit for bit. A PNG never loads
-    PIL; any other format needs it (``data.png.decode_image``)."""
+    ``convert("RGB")`` and LANCZOS resize, bit for bit. A PNG or a JPEG
+    never loads PIL; any other format needs it
+    (``data.png.decode_image``)."""
     return resize_lanczos(decode_image(body, native), height, width, native)
 
 
@@ -158,7 +160,7 @@ def make_http_server(batcher: MicroBatcher, host: str = "127.0.0.1",
                      port: int = 0):
     """-> http.server.ThreadingHTTPServer serving the engine.
 
-    POST /predict: image file body (PNG; other formats through PIL) ->
+    POST /predict: image file body (PNG, JPEG; others through PIL) ->
     .npy bytes of the (H, W) float32 disparity (resized server-side to the
     feed shape); a request that fails gets a 500 with the error's message.
     GET /healthz: {"status": "ok", "feed": [H, W], "max_batch": N}.
