@@ -1,0 +1,9 @@
+"""% of the profiled steps' device-idle time while the main thread is in
+the port's ``step.forward`` span (the idle intervals of the sub-window's
+trace overlapped with the span's)."""
+
+from benchmark import program_spans
+
+
+def read(ctx):
+    return program_spans.train_idle_share(ctx, "step.forward")

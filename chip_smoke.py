@@ -2742,7 +2742,7 @@ def check_one_nccl_rank(root, device):
         undo = recording_steps(loop, seen)
         os.environ.update(extra)
         K.reset_counts()
-        collectives = sum(M.COUNTS.values())
+        collectives = M.collectives()
         try:
             trainer = train(args + ["--log_dir", os.path.join(
                 root, name.replace(" ", "_"))], device=device)
@@ -2760,7 +2760,7 @@ def check_one_nccl_rank(root, device):
             ms=[round(1e3 * (b - a), 1) for a, b in zip(entries,
                                                          entries[1:])],
             group=trainer.mesh.group is not None,
-            collectives=sum(M.COUNTS.values()) - collectives)
+            collectives=M.collectives() - collectives)
     plain, nccl = runs["no group"], runs["NCCL WORLD_SIZE=1"]
     if plain["group"] or not nccl["group"] or not nccl["collectives"]:
         raise AssertionError("the NCCL run did not train over its group")
@@ -3836,6 +3836,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from unsupervised_pose_estimation_tpu_torch import tracing
     from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
     from unsupervised_pose_estimation_tpu_torch.ops.kernels import _lib
 
@@ -3848,8 +3849,9 @@ def main() -> int:
     start = time.perf_counter()
     path = _lib.build()
     _lib.library()
+    nvcc_s = tracing.counters().get("kernels.build_s", 0.0)
     print(f"[build] {path.name} in {time.perf_counter() - start:.2f} s "
-          f"(nvcc {_lib.build_seconds:.2f} s)", flush=True)
+          f"(nvcc {nvcc_s:.2f} s)", flush=True)
     if _lib.build_log:
         print(_lib.build_log.strip(), flush=True)
 

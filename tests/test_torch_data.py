@@ -209,6 +209,27 @@ def test_loader_batches_match_two_epochs_and_resume():
     assert ours.wait_seconds >= 0.0
 
 
+def test_loader_wait_is_the_sum_of_its_spans():
+    """``Loader.wait_seconds`` is the sum of the consumer's ``loader.wait``
+    spans, and ``batches`` the ``loader.batches`` counter's step."""
+    from unsupervised_pose_estimation_tpu_torch import tracing
+
+    start = tracing.now_ns()
+    before = tracing.counters().get("loader.batches", 0)
+    ours = Loader(parallax(datasets), 4, shuffle=True, device="cpu",
+                  num_workers=2, prefetch=1, seed=5)
+    got = port_batches(ours, 0)
+    waits = [s for s in tracing.events()
+             if s.name == "loader.wait" and s.start >= start]
+    assert len(waits) == len(got) + 1     # the last one reads the end
+    total = 0.0
+    for s in waits:     # in the Loader's order (sum() compensates)
+        total += s.seconds
+    assert ours.wait_seconds == total > 0.0
+    assert ours.batches == len(got) == (
+        tracing.counters()["loader.batches"] - before)
+
+
 def test_process_workers_give_the_thread_batches():
     threads = Loader(parallax(datasets), 4, device="cpu", num_workers=2,
                      seed=1)

@@ -235,3 +235,109 @@ def test_serving_answers_concurrent_requests(setup):
     assert depth.shape == (1, H, W) and np.isfinite(depth).all()
     with pytest.raises(ValueError):
         engine.predict(imgs[:5])
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_train_step_records_its_phases(accum):
+    """One ``step`` span holding a ``step.forward`` and a ``step.backward``
+    per microbatch, then one ``step.optimizer``; the spans change nothing:
+    the losses and the parameters are bit for bit those of a step run
+    under the profiler, where the spans are mirrored."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from unsupervised_pose_estimation_tpu_torch import tracing
+
+    # a corner of the test's frames: 32x64 keeps the four steps quick
+    cfg = Options(height=32, width=64, batch_size=B, compute_dtype="float32",
+                  grad_accum=accum)
+    batch = to_torch({k: np.ascontiguousarray(v[:, :, :32, :64])
+                      if v.ndim == 5 else v for k, v in make_batch().items()})
+    runs = []
+    for profiled in (False, True):
+        bundle = ModelBundle.create(cfg, device="cpu")
+        state = create_train_state(bundle)
+        step = tstep.build_train_step(bundle)
+        start = tracing.now_ns()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU]):
+                losses = step(state, batch)
+        else:
+            losses = step(state, batch)
+        runs.append((losses, [p.detach().clone()
+                              for p in bundle.main_parameters()]))
+        spans = [s for s in tracing.events() if s.start >= start]
+        roots = [s for s in spans if s.name == "step"]
+        assert len(roots) == 1
+        children = [s.name for s in sorted(spans, key=lambda s: s.start)
+                    if s.parent == roots[0].id]
+        assert children == (["step.forward", "step.backward"] * accum
+                            + ["step.optimizer"])
+        assert sum(s.seconds for s in spans if s.parent == roots[0].id) \
+            <= roots[0].seconds
+    (plain, p_plain), (traced, p_traced) = runs
+    assert sorted(plain) == sorted(traced)
+    for k in plain:
+        assert torch.equal(plain[k], traced[k]), k
+    for a, b in zip(p_plain, p_traced):
+        assert torch.equal(a, b)
+
+
+def test_batcher_tiles_its_loop_and_tags_each_request(setup):
+    """The batcher thread's spans follow one another (``serve.first`` or
+    ``serve.gather``, ``serve.stack``, ``engine.predict``, ``serve.reply``),
+    and each request's ``serve.queue`` carries the id of the batch, and of
+    the engine call, that served it."""
+    from unsupervised_pose_estimation_tpu_torch import tracing
+
+    opt = Options(height=H, width=W, compute_dtype="float32")
+    engine = InferenceEngine(opt, max_batch=4, device="cpu",
+                             bundle=setup["port"])
+    sizes = []
+    infer = engine._infer
+
+    def counted(x):
+        sizes.append(x.shape[0])
+        return infer(x)
+
+    engine._infer = counted
+    imgs = make_batch(2)["color"].reshape(B * 3, H, W, 3)
+    before = tracing.counters()
+    start = tracing.now_ns()
+    batcher = MicroBatcher(engine, max_delay_ms=50.0)
+    threads = [threading.Thread(target=batcher.submit, args=(imgs[i], 60.0),
+                                daemon=True) for i in range(len(imgs))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60.0)
+    finally:
+        batcher.close()
+    assert not any(t.is_alive() for t in threads) and not batcher.running
+    spans = [s for s in tracing.events() if s.start >= start]
+    loop = sorted((s for s in spans if s.name.startswith(("serve.",
+                                                          "engine.predict"))
+                   and s.name != "serve.queue"), key=lambda s: s.start)
+    assert len({s.thread for s in loop}) == 1
+    calls = [s for s in loop if s.name == "engine.predict"]
+    assert len(calls) == len(sizes) and sum(sizes) == len(imgs)
+    # each batch: its gather, stack, the engine's call and the replies
+    names = [s.name for s in loop if s.name != "serve.first"]
+    assert names == ["serve.gather", "serve.stack", "engine.predict",
+                     "serve.reply"] * len(calls)
+    for a, b in zip(loop, loop[1:]):
+        assert a.end <= b.start
+    busy = sum(s.end - s.start for s in loop
+               if loop[1].start <= s.start and s.end <= calls[-1].end)
+    assert busy >= 0.9 * (calls[-1].end - loop[1].start)
+    queued = [s for s in spans if s.name == "serve.queue"]
+    assert sorted(s.ids["request"] for s in queued) == list(range(len(imgs)))
+    for call, n in zip(calls, sizes):
+        mine = [s for s in queued if s.ids["batch"] == call.ids["batch"]]
+        assert len(mine) == n
+        assert all(s.end <= call.start for s in mine)
+    after = tracing.counters()
+    assert after["serve.requests"] - before.get("serve.requests", 0) == \
+        len(imgs)
+    assert after["serve.batches"] - before.get("serve.batches", 0) == \
+        len(calls)

@@ -341,3 +341,67 @@ def test_profiler_writes_a_trace(tmp_path):
         torch.ones(8).sum()
         prof.maybe_stop(step)
     assert os.listdir(tmp_path) == ["trace_1.json"]
+
+
+def test_profiler_trace_holds_the_spans_of_every_thread(tmp_path):
+    """The profiler records only the thread it started on; the ``tracing``
+    spans of the others join its trace, a row per thread, on its clock."""
+    import threading
+
+    from unsupervised_pose_estimation_tpu_torch import tracing
+
+    prof = Profiler(str(tmp_path), start_step=1, num_steps=1)
+
+    def worker():
+        with tracing.span("upe.worker", batch=4):
+            torch.ones(8).sum()
+
+    for step in range(3):
+        prof.maybe_start(step)
+        with tracing.span("upe.main") as main_span:
+            t = threading.Thread(target=worker, name="upe-worker")
+            t.start()
+            t.join(timeout=30)
+        prof.maybe_stop(step)
+    with open(tmp_path / "trace_1.json") as f:
+        trace = json.load(f)
+    spans = [e for e in trace["traceEvents"] if e.get("cat") == "upe_span"]
+    # the window's spans only: steps 1 and 2
+    assert sorted(e["name"] for e in spans) == ["upe.main", "upe.main",
+                                                "upe.worker", "upe.worker"]
+    rows = {e["tid"] for e in spans}
+    assert len(rows) >= 2 and len({e["pid"] for e in spans}) == 1
+    names = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"]
+             if e.get("name") == "thread_name" and e["pid"] == spans[0]["pid"]}
+    assert "upe-worker" in names.values()
+    assert [e["args"]["batch"] for e in spans if e["name"] == "upe.worker"] \
+        == [4, 4]
+    base = int(trace["baseTimeNanoseconds"])
+    last = [e for e in spans if e["name"] == "upe.main"][-1]
+    assert last["ts"] == (main_span.start - base) / 1e3
+
+
+def test_log_time_rates_the_steps_between_two_lines(tmp_path, capsys):
+    """examples/s: the samples of the steps since the last line over the
+    wall time since then (both lines follow a read of the loss)."""
+    import time
+
+    from unsupervised_pose_estimation_tpu_torch.train.logging import \
+        MetricLogger
+
+    logger = MetricLogger(str(tmp_path), "m", jsonl=False)
+    t0 = time.perf_counter()
+    logger.mark(0)
+    time.sleep(0.05)
+    logger.log_time(0, 3, 4, 2, 1.0)
+    t1 = time.perf_counter()
+    time.sleep(0.1)
+    logger.log_time(0, 5, 6, 2, 1.0)
+    t2 = time.perf_counter()
+    rates = [float(line.split("examples/s:")[1].split("|")[0])
+             for line in capsys.readouterr().out.splitlines()]
+    # printed to 0.1: 8 samples over at least 0.05 s and at most t1 - t0,
+    # then 4 over at least 0.1 s and at most t2 - t0
+    assert 8 / (t1 - t0) - 0.05 <= rates[0] <= 8 / 0.05 + 0.05
+    assert 4 / (t2 - t0) - 0.05 <= rates[1] <= 4 / 0.1 + 0.05
+    logger.finish()

@@ -24,13 +24,14 @@ from __future__ import annotations
 import pickle
 import queue
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from multiprocessing import get_context
 from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+from .. import tracing
 
 _POLL_S = 0.1  # how often a blocked producer looks for a stop request
 
@@ -147,8 +148,9 @@ class Loader:
         rank's, ``process_local_rows``), in this order; None: all.
 
     ``wait_seconds`` sums the time the consumer waited on the queue (the
-    host's share of an input-bound step), ``batches`` counts the batches
-    handed out.
+    host's share of an input-bound step; the ``tracing`` spans
+    ``loader.wait``), ``batches`` counts the batches handed out (the
+    counter ``loader.batches`` counts them over every Loader).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
@@ -278,9 +280,9 @@ class Loader:
         try:
             pending = None
             while True:
-                start = time.perf_counter()
-                got = q.get()
-                self.wait_seconds += time.perf_counter() - start
+                with tracing.span("loader.wait") as waited:
+                    got = q.get()
+                self.wait_seconds += waited.seconds
                 if isinstance(got, BaseException):
                     raise got
                 batch = None if got is None else self._to_device(*got)
@@ -325,6 +327,7 @@ class Loader:
             for t in batch.values():
                 t.record_stream(stream)
         self.batches += 1
+        tracing.count("loader.batches")
         return batch
 
     def __iter__(self):

@@ -23,6 +23,8 @@ from pathlib import Path
 
 import torch
 
+from ... import tracing
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -74,7 +76,6 @@ HOST_CALLS = {"png_unfilter": 0, "resample_horizontal_u8": 0,
 _lock = threading.Lock()
 _lib = None
 build_log = ""      # nvcc's output of the build this process ran, if any
-build_seconds = 0.0
 
 
 def _compiled():
@@ -108,7 +109,7 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the library unless the current sources' build exists."""
-    global build_log, build_seconds
+    global build_log
     out = library_path()
     if out.is_file():
         return out
@@ -121,7 +122,7 @@ def build() -> Path:
         start = time.perf_counter()
         proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *cus],
                               capture_output=True, text=True)
-        build_seconds = time.perf_counter() - start
+        tracing.count("kernels.build_s", time.perf_counter() - start)
         build_log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import tracing
 from ..warp import corners, grid_cotangent, unnormalize
 from . import _lib
 from .corners import (LANE, MB7, expand_starts, fetch_corners,
@@ -209,7 +210,7 @@ def sample(image, grid, version):
     _check_ladder(image, grid, version)
     x0i, y0i, wx, wy = taps(grid)
     rungs = ladder(version, image.dtype == torch.uint8, x0i, y0i, h, w)
-    with torch.profiler.record_function("upe::warp_ladder_gates"):
+    with tracing.span("warp.ladder_gates"):
         oks = torch.stack([r[3] for r in rungs]).tolist()
     chosen = next((r for r, ok in zip(rungs, oks) if ok), None)
     if chosen is None:

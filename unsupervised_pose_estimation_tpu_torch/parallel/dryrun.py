@@ -433,7 +433,7 @@ def run_case(case: dict, device, out: Path, memo: dict) -> dict:
             before = snapshot(bundle, state) if k < compare else None
         mesh.barrier(device)
         K.reset_counts()
-        collectives = sum(M.COUNTS.values())
+        collectives = M.collectives()
         _sync(device)
         start = time.perf_counter()
         losses = step_fn(state, local[k], noise=noises[k])
@@ -441,7 +441,7 @@ def run_case(case: dict, device, out: Path, memo: dict) -> dict:
         _sync(device)
         ms = (time.perf_counter() - start) * 1e3
         record = {"losses": losses, "ms": ms,
-                  "collectives": sum(M.COUNTS.values()) - collectives,
+                  "collectives": M.collectives() - collectives,
                   "launches": K.counts()}
         for name, n in record["launches"].items():
             launches[name] = launches.get(name, 0) + n

@@ -24,13 +24,13 @@ The collectives here run on any backend: under gloo a CUDA tensor goes
 through a host copy (gloo has no reduce-scatter, and its CUDA support
 varies), under NCCL it stays on the card. ``all_reduce_sum`` is
 differentiable: its backward sums the gradients over the ranks, which is
-what a statistic of the global batch needs. ``COUNTS`` counts the calls of
-each kind, for the step's collective count.
+what a statistic of the global batch needs. The ``tracing`` counters
+``mesh.all_reduce`` and ``mesh.all_gather`` count the calls of each kind
+(``collectives()``, the step's collective count).
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import os
 import warnings
@@ -40,8 +40,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-# collectives issued by this process, by kind
-COUNTS: "collections.Counter[str]" = collections.Counter()
+from .. import tracing
+
+
+def collectives() -> int:
+    """Collectives this process has issued (the ``tracing`` counters
+    ``mesh.*``)."""
+    return sum(n for name, n in tracing.counters().items()
+               if name.startswith("mesh."))
 
 
 def initialized() -> bool:
@@ -185,7 +191,7 @@ def _staged(tensor: torch.Tensor, group) -> bool:
 
 def all_reduce_(tensor: torch.Tensor, group) -> torch.Tensor:
     """Sum a contiguous ``tensor`` over ``group`` in place."""
-    COUNTS["all_reduce"] += 1
+    tracing.count("mesh.all_reduce")
     if _staged(tensor, group):
         host = tensor.cpu()
         dist.all_reduce(host, group=group)
@@ -197,7 +203,7 @@ def all_reduce_(tensor: torch.Tensor, group) -> torch.Tensor:
 
 def all_gather_into(outs: List[torch.Tensor], tensor: torch.Tensor, group):
     """Rank i's ``tensor`` into ``outs[i]``, on every rank of ``group``."""
-    COUNTS["all_gather"] += 1
+    tracing.count("mesh.all_gather")
     tensor = tensor.contiguous()
     if _staged(tensor, group):
         host = [torch.empty(o.shape, dtype=o.dtype) for o in outs]

@@ -14,28 +14,34 @@ training step (forward, loss, backward, Adam) at batch 12 with the fused
 warp + loss kernels and with the unfused ones. ``--warp-version`` 1-7 sets
 ``pallas_warp_version``: the warps then go through that version's ladder
 (one unfused mode), and each record also gives the host time spent in the
-ladder's gate reads (``upe::warp_ladder_gates``, one device synchronisation
-per warp) and the rungs that ran. ``--compute_dtype`` is the networks'
-(float32 by default; TF32 off either way). All at 640x192 with random
-weights from a seed. It warms each up, then traces ``STEPS`` calls with
-``torch.profiler`` and prints, per call: wall time (host clock around work
-that ends in a synchronize), device busy time (the sum of kernel times),
-the idle share (1 - busy / wall), the kernels that take the most device
-time, and the convolution and matmul operators (with input shapes) that
-launched the most. One JSON line per workload, after a line with the
-card's name and power limit.
+ladder's gate reads (the span ``warp.ladder_gates``, one device
+synchronisation per warp) and the rungs that ran. ``--compute_dtype`` is
+the networks' (float32 by default; TF32 off either way). All at 640x192
+with random weights from a seed. It warms each up, then traces ``STEPS``
+calls with ``torch.profiler`` and prints, per call: wall time (host clock
+around work that ends in a synchronize), device busy time (the union of the
+device's kernel, copy and set intervals in the traced stretch: concurrent
+kernels count once), the idle share (1 - busy / the stretch), the host time
+of each ``tracing`` span the calls recorded (the training step's
+``step.forward``, ``step.backward`` and ``step.optimizer``), the kernels
+that take the most device time, and the convolution and matmul operators
+(with input shapes) that launched the most. One JSON line per workload,
+after a line with the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
+import tempfile
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from . import tracing
 from .config import Options
 from .ops import kernels as K
 from .train.bundle import ModelBundle
@@ -71,6 +77,36 @@ def _total_device_us(evt):
                    getattr(evt, "cuda_time_total", 0.0))
 
 
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+WINDOW = "profile_step.window"
+
+
+def device_busy_us(prof) -> tuple:
+    """(the union of the device's intervals inside the ``WINDOW``
+    annotation, the annotation's length), in us, from the exported
+    trace."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    w = next(e for e in events if e.get("name") == WINDOW
+             and e.get("cat") == "user_annotation")
+    t0, t1 = float(w["ts"]), float(w["ts"]) + float(w["dur"])
+    busy, covered = 0.0, t0
+    for lo, hi in sorted((max(float(e["ts"]), t0),
+                          min(float(e["ts"]) + float(e["dur"]), t1))
+                         for e in events if e.get("cat") in DEVICE_CATS
+                         and e.get("ph") == "X"):
+        if hi > max(lo, covered):
+            busy += hi - max(lo, covered)
+            covered = hi
+    return busy, t1 - t0
+
+
 def trace(name, fn):
     """Warm ``fn`` up, trace STEPS calls, print one JSON record."""
     for _ in range(3):
@@ -79,19 +115,27 @@ def trace(name, fn):
     K.reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
-        start = time.perf_counter()
-        for _ in range(STEPS):
-            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3 / STEPS
+        with torch.profiler.record_function(WINDOW):
+            first = tracing.now_ns()
+            start = time.perf_counter()
+            for _ in range(STEPS):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3 / STEPS
     rungs = {k: n // STEPS for k, n in K.rung_counts().items() if n}
+    spans = {}
+    for s in tracing.events():
+        if s.start >= first:
+            spans.setdefault(s.name, []).append(s.seconds)
     averages = prof.key_averages()
+    # the spans, mirrored into the trace, carry device time on the card
+    # too: they are not kernels
     kernels = [e for e in averages
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and _device_us(e) > 0]
-    gates = [e for e in averages if e.key == "upe::warp_ladder_gates"
-             and e.device_type == torch.autograd.DeviceType.CPU]
-    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / STEPS
+               and _device_us(e) > 0 and e.key not in spans]
+    busy_us, window_us = device_busy_us(prof)
+    busy_ms = busy_us / 1e3 / STEPS
     kernels.sort(key=_device_us, reverse=True)
     # the operators behind the kernels: top-level aten ops with their input
     # shapes, by the device time of everything they launched
@@ -102,9 +146,10 @@ def trace(name, fn):
     print(json.dumps({
         "workload": name, "device": torch.cuda.get_device_name(0),
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "idle_share": 1.0 - busy_ms / wall_ms,
-        "gate_reads": sum(e.count for e in gates) // STEPS,
-        "gate_read_ms": sum(e.cpu_time_total for e in gates) / 1e3 / STEPS,
+        "idle_share": 1.0 - busy_us / window_us,
+        "span_ms": {n: 1e3 * sum(t) / STEPS for n, t in sorted(spans.items())},
+        "gate_reads": len(spans.get("warp.ladder_gates", ())) // STEPS,
+        "gate_read_ms": 1e3 * sum(spans.get("warp.ladder_gates", ())) / STEPS,
         "rungs": rungs,
         "top_kernels": [{"name": e.key[:80], "calls": e.count // STEPS,
                          "ms": _device_us(e) / 1e3 / STEPS}

@@ -22,16 +22,18 @@ runs eagerly, so partial batches are not padded to a compiled shape.
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import os
 import queue
 import threading
 import time
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 
+from . import tracing
 from .config import Options
 from .data.png import decode_image
 from .data.resample import resize_lanczos
@@ -78,11 +80,17 @@ class InferenceEngine:
         if images.shape[1:] != (self.height, self.width, 3):
             raise ValueError(f"images must be (N, {self.height}, "
                              f"{self.width}, 3), got {images.shape}")
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-        x = x.float() * (1.0 / 255.0) if x.dtype == torch.uint8 else x.float()
-        disp = self._infer(x)[0][..., 0]
-        self.calls += 1
-        return disp.cpu().numpy()
+        with tracing.span("engine.predict"):
+            with tracing.span("engine.h2d"):
+                x = torch.from_numpy(np.ascontiguousarray(images)).to(
+                    self.device)
+                x = (x.float() * (1.0 / 255.0) if x.dtype == torch.uint8
+                     else x.float())
+            with tracing.span("engine.forward"):
+                disp = self._infer(x)[0][..., 0]
+            self.calls += 1
+            with tracing.span("engine.d2h"):
+                return disp.cpu().numpy()
 
     def predict_depth(self, images: np.ndarray) -> np.ndarray:
         _, depth = disp_to_depth(self.predict(images), self.opt.min_depth,
@@ -91,13 +99,22 @@ class InferenceEngine:
 
 
 class MicroBatcher:
-    """Coalesce concurrent single-image requests into shared engine calls."""
+    """Coalesce concurrent single-image requests into shared engine calls.
+
+    Its thread's loop is tiled by ``tracing`` spans: ``serve.first``
+    (waiting for a batch's first request), ``serve.gather`` (from it to the
+    batch's close, on size or deadline), ``serve.stack``, the engine's
+    ``engine.predict`` and ``serve.reply``, all with the batch's id. Each
+    request's ``serve.queue`` runs from ``submit`` to the batcher taking
+    it, with its request id and batch id; counters ``serve.requests`` and
+    ``serve.batches``."""
 
     def __init__(self, engine: InferenceEngine, max_delay_ms: float = 5.0):
         self.engine = engine
         self.max_delay = max_delay_ms / 1000.0
-        self._queue: "queue.Queue[Tuple[np.ndarray, queue.Queue]]" = \
-            queue.Queue()
+        self._queue: "queue.Queue[tuple]" = queue.Queue()
+        self._requests = itertools.count()
+        self._batches = itertools.count()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="micro-batcher")
@@ -106,7 +123,8 @@ class MicroBatcher:
     def submit(self, image: np.ndarray, timeout: float = 30.0) -> np.ndarray:
         """(H, W, 3) -> (H, W) disparity; blocks until served."""
         reply: "queue.Queue" = queue.Queue(maxsize=1)
-        self._queue.put((image, reply))
+        self._queue.put((image, reply, next(self._requests),
+                         tracing.now_ns()))
         out = reply.get(timeout=timeout)
         if isinstance(out, Exception):
             raise out
@@ -114,10 +132,18 @@ class MicroBatcher:
 
     def _run(self):
         while not self._stop.is_set():
-            try:
-                first = self._queue.get(timeout=0.1)
-            except queue.Empty:
-                continue
+            with tracing.span("serve.first"):
+                try:
+                    first = self._queue.get(timeout=0.1)
+                except queue.Empty:
+                    continue
+                bid = next(self._batches)
+                _queued(first, bid)
+            with tracing.ids(batch=bid):
+                self._serve(first, bid)
+
+    def _serve(self, first: tuple, bid: int):
+        with tracing.span("serve.gather"):
             batch = [first]
             deadline = time.monotonic() + self.max_delay
             while len(batch) < self.engine.max_batch:
@@ -128,14 +154,21 @@ class MicroBatcher:
                     batch.append(self._queue.get(timeout=left))
                 except queue.Empty:
                     break
-            try:
-                disps = self.engine.predict(np.stack([b[0] for b in batch]))
-            except Exception as err:  # every waiter gets the failure
-                for _, reply in batch:
-                    reply.put(err)
-                continue
-            for (_, reply), d in zip(batch, disps):
-                reply.put(d)
+                _queued(batch[-1], bid)
+            tracing.count("serve.requests", len(batch))
+            tracing.count("serve.batches")
+        try:
+            with tracing.span("serve.stack"):
+                images = np.stack([b[0] for b in batch])
+            disps = self.engine.predict(images)
+        except Exception as err:  # every waiter gets the failure
+            with tracing.span("serve.reply"):
+                for b in batch:
+                    b[1].put(err)
+            return
+        with tracing.span("serve.reply"):
+            for b, d in zip(batch, disps):
+                b[1].put(d)
 
     @property
     def running(self) -> bool:
@@ -145,6 +178,12 @@ class MicroBatcher:
         """Stop the batching thread and wait up to ``timeout`` s for it."""
         self._stop.set()
         self._thread.join(timeout=timeout)
+
+
+def _queued(request: tuple, batch: int):
+    """The request's ``serve.queue`` span: submitted to taken now."""
+    tracing.record("serve.queue", request[3], tracing.now_ns(),
+                   request=request[2], batch=batch)
 
 
 def decode_request(body: bytes, height: int, width: int,

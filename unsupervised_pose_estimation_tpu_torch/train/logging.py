@@ -7,7 +7,7 @@ only rank 0 prints, writes and logs (the values are global already). W&B is
 opt-in and skipped with
 a message when not installed. ``Profiler`` traces a window of steps with
 ``torch.profiler`` (CPU and CUDA activities) and writes a Chrome trace to
-``profile_dir``.
+``profile_dir``, with the ``tracing`` spans of every thread in it.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..data.png import write_png
 
 
@@ -51,6 +52,7 @@ class MetricLogger:
         os.makedirs(self.log_path, exist_ok=True)
         self.start_time = time.time()
         self.total_steps = total_steps
+        self._mark: Optional[tuple] = None
         self.writes = rank == 0
         self._jsonl = None
         self._wandb = None
@@ -69,12 +71,26 @@ class MetricLogger:
             except Exception as e:  # optional; training goes on without it
                 print(f"[logging] wandb unavailable ({e}); continuing")
 
+    def mark(self, step: int):
+        """Start the examples/s clock at ``step`` steps done, with no step
+        enqueued."""
+        self._mark = (time.perf_counter(), step)
+
     def log_time(self, epoch: int, batch_idx: int, step: int,
-                 duration: float, batch_size: int, loss: float):
-        """The reference trainer's console line."""
+                 batch_size: int, loss: float):
+        """The reference trainer's console line, once ``loss`` (a float:
+        the device has finished) is read after ``step`` steps. examples/s
+        is the samples of the steps since the last line (or ``mark``) over
+        the wall time since then."""
+        now = time.perf_counter()
+        last, self._mark = self._mark, (now, step)
         if not self.writes:
             return
-        samples_per_sec = batch_size / max(duration, 1e-9)
+        if last is None or step <= last[1]:
+            samples_per_sec = float("nan")
+        else:
+            samples_per_sec = (batch_size * (step - last[1])
+                               / max(now - last[0], 1e-9))
         elapsed = time.time() - self.start_time
         if self.total_steps and step > 0:
             left = (self.total_steps / step - 1.0) * elapsed
@@ -131,10 +147,18 @@ class MetricLogger:
             self._wandb.finish()
 
 
+# the Chrome trace's process for the tracing spans (the profiler's own
+# rows are the process's id and the devices')
+SPAN_PID = 1 << 30
+
+
 class Profiler:
     """A ``torch.profiler`` trace of steps ``start_step`` to ``start_step +
     num_steps`` (the reference's window), written to
-    ``<profile_dir>/trace_<start_step>.json``."""
+    ``<profile_dir>/trace_<start_step>.json``. The ``tracing`` spans of
+    every thread that overlap the window are added to it, one row per
+    thread (the profiler itself records the threads it was started on
+    only), on the trace's own clock."""
 
     def __init__(self, profile_dir: Optional[str], start_step: int = 10,
                  num_steps: int = 5):
@@ -152,13 +176,22 @@ class Profiler:
                 activities.append(ProfilerActivity.CUDA)
             self._prof = profile(activities=activities)
             self._prof.__enter__()
+            self._start_ns = tracing.now_ns()
 
     def maybe_stop(self, step: int):
         if self._prof is not None and step >= self.stop_step:
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
             self._prof.__exit__(None, None, None)
+            end_ns = tracing.now_ns()
             os.makedirs(self.dir, exist_ok=True)
-            self._prof.export_chrome_trace(
-                os.path.join(self.dir, f"trace_{self.start_step}.json"))
+            path = os.path.join(self.dir, f"trace_{self.start_step}.json")
+            self._prof.export_chrome_trace(path)
             self._prof = None
+            with open(path) as f:
+                trace = json.load(f)
+            trace["traceEvents"] += tracing.chrome_events(
+                int(trace.get("baseTimeNanoseconds", 0)), self._start_ns,
+                end_ns, pid=SPAN_PID)
+            with open(path, "w") as f:
+                json.dump(trace, f)

@@ -26,12 +26,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import Options
 from ..data.datasets import (SyntheticDataset, SyntheticParallaxDataset,
                              make_dataset)
@@ -308,6 +308,7 @@ class Trainer:
         self.step = start_step
         spe = max(self.steps_per_epoch, 1)
         start_epoch = start_step // spe
+        self.logger.mark(start_step)
         try:
             with deterministic_cudnn():
                 for self.epoch in range(start_epoch, cfg.num_epochs):
@@ -331,11 +332,15 @@ class Trainer:
             self._saved_step = self.state.step
 
     def close(self):
-        """End the loaders' workers and close the logs."""
+        """End the loaders' workers and close the logs; with
+        ``profile_dir``, write the ``tracing`` records beside
+        ``metrics.jsonl`` (``spans.jsonl``)."""
         self.val_iter.close()
         self.train_loader.close()
         self.val_loader.close()
         self.logger.finish()
+        if self.cfg.profile_dir and self.rank == 0:
+            tracing.write_jsonl(os.path.join(self.log_path, "spans.jsonl"))
 
     def run_epoch(self, start_batch: int = 0):
         cfg = self.cfg
@@ -345,7 +350,6 @@ class Trainer:
                 start=start_batch):
             if batch_idx >= self.steps_per_epoch:
                 break
-            t0 = time.time()
             self.profiler.maybe_start(self.step)
             losses = self.train_step(self.state, batch)
             if self.disc_step is not None:
@@ -354,9 +358,8 @@ class Trainer:
 
             if batch_idx % cfg.log_frequency == 0:
                 loss = float(losses["loss"])  # syncs only when logging
-                duration = time.time() - t0
                 self.logger.log_time(self.epoch, batch_idx, self.step + 1,
-                                     duration, cfg.batch_size, loss)
+                                     cfg.batch_size, loss)
                 self.logger.log_scalars(
                     "train", {k: float(v) for k, v in losses.items()},
                     self.step,

@@ -43,6 +43,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import tracing
 from ..data.pipeline import process_local_rows
 from ..ops import geometry as G
 from ..ops import losses as L
@@ -404,6 +405,12 @@ def build_train_step(bundle: ModelBundle, mesh: Optional[Mesh] = None):
     the same on every rank. Under fsdp (``state.shards``) the full
     parameters are gathered for the step, Adam updates this rank's shard,
     and the full parameters are freed again.
+
+    Each call is a ``tracing`` span ``step`` holding ``step.forward``
+    (``forward_and_loss``) and ``step.backward`` for each microbatch, then
+    ``step.optimizer`` (the mesh's averaging of the gradients and the
+    losses, the microbatches' mean, ``grad_norm``, the learning rate and
+    the update): the host's time enqueueing each phase.
     """
     cfg = bundle.cfg
     accum = cfg.grad_accum
@@ -412,6 +419,10 @@ def build_train_step(bundle: ModelBundle, mesh: Optional[Mesh] = None):
         share_batch_statistics(bundle, mesh.group)
 
     def step(state: TrainState, batch, generator=None, noise=None):
+        with tracing.span("step"):
+            return _step(state, batch, generator, noise)
+
+    def _step(state: TrainState, batch, generator, noise):
         b = batch["color"].shape[0]
         if accum < 1 or b % accum:
             raise ValueError(f"grad_accum {accum} does not divide the batch "
@@ -438,30 +449,36 @@ def build_train_step(bundle: ModelBundle, mesh: Optional[Mesh] = None):
             micro = {k: v[part] for k, v in batch.items()}
             micro_noise = (None if noise is None
                            else {s: t[part] for s, t in noise.items()})
-            total, (losses, _) = forward_and_loss(
-                bundle, micro, train=True, generator=generator,
-                noise=micro_noise, mesh=mesh, noise_rows=noise_rows)
-            total.backward()
-            per_micro.append({k: v.detach() for k, v in losses.items()})
-        flat = None
-        if mesh is not None:
-            flat = average_gradients(
-                params, mesh, numel=None if shards is None else shards.numel,
-                zeros_for_missing=shards is not None)
-        if accum > 1:
-            for p in params:
-                p.grad.div_(accum)
-        losses = {k: torch.stack([m[k] for m in per_micro]).mean()
-                  for k in per_micro[0]}
-        if mesh is not None:
-            losses = mean_over_ranks(losses, mesh)
-        losses["grad_norm"] = global_norm([p.grad for p in params])
-        for group in opt.param_groups:
-            group["lr"] = state.schedule(state.step)
-        if shards is None:
-            opt.step()
-        else:
-            shards.step(opt, flat)
+            with tracing.span("step.forward"):
+                total, (losses, _) = forward_and_loss(
+                    bundle, micro, train=True, generator=generator,
+                    noise=micro_noise, mesh=mesh, noise_rows=noise_rows)
+            with tracing.span("step.backward"):
+                total.backward()
+                per_micro.append({k: v.detach() for k, v in losses.items()})
+                # the graph goes here, not when the step returns
+                del total, losses, _
+        with tracing.span("step.optimizer"):
+            flat = None
+            if mesh is not None:
+                flat = average_gradients(
+                    params, mesh,
+                    numel=None if shards is None else shards.numel,
+                    zeros_for_missing=shards is not None)
+            if accum > 1:
+                for p in params:
+                    p.grad.div_(accum)
+            losses = {k: torch.stack([m[k] for m in per_micro]).mean()
+                      for k in per_micro[0]}
+            if mesh is not None:
+                losses = mean_over_ranks(losses, mesh)
+            losses["grad_norm"] = global_norm([p.grad for p in params])
+            for group in opt.param_groups:
+                group["lr"] = state.schedule(state.step)
+            if shards is None:
+                opt.step()
+            else:
+                shards.step(opt, flat)
         state.step += 1
         return losses
 
