@@ -33,7 +33,18 @@ Phases, each timed on its own line:
    on the same weights, noise and augmentation at a small size; in float32,
    then in bfloat16 (one step against the CPU's, held to its gap); each
    dtype's step also twice under the trainer's deterministic cuDNN (the
-   same bits) and timed with and without it, in alternating rounds;
+   same bits) and timed with and without it, in alternating rounds; then
+   the step replayed from one CUDA graph (``GRAPH_*``), for both benchmark
+   configurations at their size: five steps with the capture at the third
+   against five eager ones from the same weights and batches (the third's
+   losses the same bits, the fourth's within ``GRAPH_RTOL``, the change
+   within the cell's update limit, the graph counters, the kernel
+   launches the same as eager's, the rate's schedule crossed under
+   replay), Adam's state saved after replays and
+   loaded into a fresh state (its eager step against a replay), the host
+   ms of an eager and of a replayed call, the warm-up and a capture again
+   after new parameter storage, eager calls after a load, and the forward
+   and backward under ``torch.cuda.set_sync_debug_mode("error")``;
 6. the warp ladder of ``pallas_warp_version`` 1-7: the corner-fetch
    kernels K6 (narrow and wide band, per-block and per-row band starts),
    K7 and K8 against their plain versions on grids that meet their gates
@@ -147,6 +158,7 @@ from __future__ import annotations
 
 import contextlib
 import faulthandler
+import io
 import json
 import math
 import os
@@ -1450,6 +1462,312 @@ def phase_train_step(device="cuda", dtype="float32"):
     return total
 
 
+# The graph phase: the training step replayed from one CUDA graph
+# (train.step._StepGraph) against the same step run eagerly, for both
+# benchmark configurations at their own size. Each run takes GRAPH_STEPS
+# steps; the schedule drops the rate tenfold from update GRAPH_BOUNDARY + 1
+# on, which the graph meets under replay. The third step's losses must be
+# the eager step's bits (same weights, kernels and algorithms), the fourth's
+# within GRAPH_RTOL, and the parameters' change within the cell's update
+# limit (benchmark/limits).
+GRAPH_CELLS = {"monodepth2_m640x192": "kitti640_train",
+               "fork_m640x192_f32": "fork640_f32_train"}
+GRAPH_STEPS, GRAPH_BOUNDARY = 5, 4
+GRAPH_RTOL = 1e-5
+GRAPH_REPLAYS = 8   # more replays for the host time of a replayed call
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def graph_counts(since=None):
+    """The step's graph counters (``tracing``): captures, replays, eager
+    calls; less ``since`` when given."""
+    from unsupervised_pose_estimation_tpu_torch import tracing
+
+    now = {k: tracing.counters().get(f"step.{k}", 0)
+           for k in ("graph_captures", "graph_replays", "eager")}
+    return now if since is None else {k: now[k] - since[k] for k in now}
+
+
+def bench_options(name):
+    """A benchmark configuration's options (``benchmark/configs``)."""
+    from benchmark.traffic.train_loop import options
+
+    with open(os.path.join(HERE, "benchmark", "configs", f"{name}.json")) as f:
+        return options(json.load(f))
+
+
+def graph_schedule(count):
+    return LR * (0.1 if count >= GRAPH_BOUNDARY else 1.0)
+
+
+def run_graph_steps(cfg, batches, graphed, device):
+    """GRAPH_STEPS steps from the seed-0 weights: with one step function
+    (two eager calls, the capture, replays) or, not ``graphed``, a new
+    step function for each call (eager every time). -> dict of the
+    bundle, state, step, the returned losses as held, their copies taken
+    at once, the parameters after each step, host ms of each call, the
+    graph counters after 4 and after all steps and the kernel launches of
+    all steps."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.ops import kernels as K
+    from unsupervised_pose_estimation_tpu_torch.train.bundle import \
+        ModelBundle
+    from unsupervised_pose_estimation_tpu_torch.train.state import \
+        create_train_state
+    from unsupervised_pose_estimation_tpu_torch.train.step import \
+        build_train_step
+
+    bundle = ModelBundle.create(cfg, seed=0, device=device)
+    state = create_train_state(bundle)
+    state.schedule = graph_schedule
+    run = dict(bundle=bundle, state=state, held=[], kept=[], params=[],
+               host_ms=[], start={n: p.detach().clone() for n, p in
+                                  bundle.named_main_parameters()})
+    step = build_train_step(bundle)
+    since = graph_counts()
+    K.reset_counts()
+    for k, batch in enumerate(batches):
+        if not graphed:
+            step = build_train_step(bundle)
+        start = time.perf_counter()
+        losses = step(state, batch)
+        run["host_ms"].append(1e3 * (time.perf_counter() - start))
+        run["held"].append(losses)
+        run["kept"].append({n: v.clone() for n, v in losses.items()})
+        run["params"].append({n: p.detach().clone() for n, p in
+                              bundle.named_main_parameters()})
+        if k == 3:
+            run["counts4"] = graph_counts(since)
+    torch.cuda.synchronize(device)
+    run["counts"] = graph_counts(since)
+    run["launches"] = K.counts()
+    run["step"] = step
+    return run
+
+
+def change_gaps(start, got, want):
+    """The benchmark's update gaps of ``got``'s parameters against
+    ``want``'s (both changed from ``start``): by leaf |norm of got's
+    change - norm of want's| over the larger of want's and the median
+    leaf's; -> (median leaf's, worst leaf's)."""
+    import torch
+
+    cw = torch.stack([(want[n] - start[n]).float().norm() for n in start])
+    cg = torch.stack([(got[n] - start[n]).float().norm() for n in start])
+    gap = (cg - cw).abs() / cw.clamp(min=float(cw.median()))
+    return float(gap.median()), float(gap.max())
+
+
+def rel_losses(got, want):
+    return {k: abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])),
+                                                          1e-12)
+            for k in want}
+
+
+def update_rel(run_a, run_b, k):
+    """||step k's update of a - of b|| / ||of b||, over all parameters."""
+    def delta(run, n):
+        return run["params"][k][n] - run["params"][k - 1][n]
+
+    num = sum(float((delta(run_a, n) - delta(run_b, n)).float().norm()) ** 2
+              for n in run_a["start"])
+    den = sum(float(delta(run_b, n).float().norm()) ** 2
+              for n in run_b["start"])
+    return math.sqrt(num / den)
+
+
+def step_norm(run, k):
+    return math.sqrt(sum(float((run["params"][k][n] - run["params"][k - 1][n])
+                               .float().norm()) ** 2 for n in run["start"]))
+
+
+def check_no_host_reads(bundle, batch, device):
+    """The forward and backward under torch's sync debug mode at
+    ``error``: any operation that waits for the device (a copy from
+    pageable host memory, ``item``, ``tolist``) raises."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.train.step import (
+        draw_noise, forward_and_loss, noise_generator)
+
+    cfg = bundle.cfg
+    noise = draw_noise(cfg, batch["color"].shape[0],
+                       noise_generator(cfg.seed, 0, device), device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        total, _ = forward_and_loss(bundle, batch, train=True, noise=noise)
+        total.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    bundle.zero_grad(set_to_none=True)
+
+
+def check_graph_config(name, device):
+    """One benchmark configuration: the eager and the graphed runs, the
+    reload, the re-capture and the host times; -> a record."""
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.train.bundle import \
+        ModelBundle
+    from unsupervised_pose_estimation_tpu_torch.train.state import (
+        create_train_state, load_optimizer_state_dict, optimizer_state_dict)
+    from unsupervised_pose_estimation_tpu_torch.train.step import (
+        build_train_step, graph_capturable)
+
+    cfg = bench_options(name)
+    if not graph_capturable(cfg, device):
+        raise AssertionError(f"{name}: the graph does not admit it")
+    b, h, w = cfg.batch_size, cfg.height, cfg.width
+    gen = torch.Generator().manual_seed(31)
+    batches = [train_batch(gen, device, b, h, w)
+               for _ in range(GRAPH_STEPS + 3)]
+    eager = run_graph_steps(cfg, batches[:GRAPH_STEPS], False, device)
+    graph = run_graph_steps(cfg, batches[:GRAPH_STEPS], True, device)
+    counts4 = graph["counts4"]
+    want4 = {"graph_captures": 1, "graph_replays": 2, "eager": 2}
+    third = {k: torch.equal(graph["kept"][2][k], eager["kept"][2][k])
+             for k in eager["kept"][2]}
+    fourth = max(rel_losses(graph["kept"][3], eager["kept"][3]).values())
+    held = all(torch.equal(graph["held"][2][k], graph["kept"][2][k])
+               for k in graph["kept"][2])
+    limits = json.load(open(os.path.join(
+        HERE, "benchmark", "limits", f"{GRAPH_CELLS[name]}.json")))["limits"]
+    limit_key = ("update_gap_median" if "update_gap_median" in limits
+                 else "update_gap")
+    median_gap, worst_gap = change_gaps(graph["start"], graph["params"][3],
+                                        eager["params"][3])
+    gap = median_gap if limit_key == "update_gap_median" else worst_gap
+    fifth = update_rel(graph, eager, GRAPH_STEPS - 1)
+    drop = step_norm(graph, GRAPH_STEPS - 1) / step_norm(graph,
+                                                         GRAPH_STEPS - 2)
+    print(f"  {name} at batch {b}, {w}x{h}: graph counts after 4 steps "
+          f"{counts4} (want {want4}), after {GRAPH_STEPS} "
+          f"{graph['counts']}; step 3 losses bit-equal to eager "
+          f"{third}; step 4 worst relative loss gap {fourth:.3g} (bound "
+          f"{GRAPH_RTOL:g}); update gaps after 4 steps median {median_gap:.3g}"
+          f" worst {worst_gap:.3g} ({limit_key} limit {limits[limit_key]}); "
+          f"step 3's losses held across later calls {held}; launches "
+          f"{graph['launches']} (eager {eager['launches']})", flush=True)
+    print(f"  {name}: the rate drops tenfold at update {GRAPH_BOUNDARY + 1} "
+          f"(a replay): its update against eager's {fifth:.3g} (relative), "
+          f"its size over the previous update's {drop:.3f}", flush=True)
+    bwd = 8 * GRAPH_STEPS   # 4 scales x 2 sources a step
+    if not (counts4 == want4 and third["loss"] and fourth <= GRAPH_RTOL
+            and graph["launches"] == eager["launches"]
+            and graph["launches"]["warp_reproj_loss_bwd"] == bwd
+            and gap <= limits[limit_key] and held and fifth <= 1e-3
+            and drop < 0.5):
+        raise AssertionError(f"{name}: the graphed step disagrees with the "
+                             f"eager one")
+
+    # optimizer state saved after replays (through bytes, as a checkpoint
+    # holds it), loaded into a fresh state: one eager step there against
+    # one replay here
+    buf = io.BytesIO()
+    torch.save(optimizer_state_dict(graph["state"]), buf)
+    buf.seek(0)
+    saved_opt = torch.load(buf, map_location="cpu", weights_only=True)
+    twin = ModelBundle.create(cfg, seed=1, device=device)
+    twin.load_state_dict(graph["bundle"].state_dict())
+    twin_state = create_train_state(twin)
+    twin_state.schedule = graph_schedule
+    load_optimizer_state_dict(twin_state, saved_opt)
+    twin_state.step = graph["state"].step
+    batch = batches[GRAPH_STEPS]
+    before = graph_counts()
+    l_eager = build_train_step(twin)(twin_state, batch)
+    after_eager = graph_counts(before)
+    l_replay = graph["step"](graph["state"], batch)
+    torch.cuda.synchronize(device)
+    after_replay = graph_counts(before)
+    twin_params = {n: p.detach() for n, p in twin.named_main_parameters()}
+    p_rel = max(float((p.detach() - twin_params[n]).norm()
+                      / twin_params[n].norm().clamp(min=1e-30))
+                for n, p in graph["bundle"].named_main_parameters())
+    loaded_equal = torch.equal(l_eager["loss"], l_replay["loss"])
+    print(f"  {name}: Adam saved after replays (eager form: capturable "
+          f"{saved_opt['param_groups'][0]['capturable']}), loaded into a "
+          f"fresh state: its eager step against a replay here: loss "
+          f"bit-equal {loaded_equal}, parameters' worst relative gap "
+          f"{p_rel:.3g}; counts {after_replay} (eager step "
+          f"{after_eager})", flush=True)
+    if not (loaded_equal and p_rel <= GRAPH_RTOL
+            and after_eager["eager"] == 1
+            and after_replay["graph_replays"] == 1
+            and after_replay["graph_captures"] == 0):
+        raise AssertionError(f"{name}: the reloaded state steps otherwise")
+
+    # host time of a call: eager calls 2-5 of the eager run against
+    # replays (no synchronize inside the timed call)
+    replay_ms = []
+    before = graph_counts()
+    for k in range(GRAPH_REPLAYS):
+        start = time.perf_counter()
+        graph["step"](graph["state"], batches[k % len(batches)])
+        replay_ms.append(1e3 * (time.perf_counter() - start))
+        torch.cuda.synchronize(device)
+    replays = graph_counts(before)
+    eager_ms = statistics.median(eager["host_ms"][1:])
+    print(f"  {name}: host ms of a call: eager {eager_ms:.2f} (calls 2-"
+          f"{GRAPH_STEPS}: {[round(t, 2) for t in eager['host_ms'][1:]]}), "
+          f"replay {statistics.median(replay_ms):.3f} "
+          f"({[round(t, 3) for t in replay_ms]}; counts {replays}), the "
+          f"capturing call {graph['host_ms'][2]:.1f}; {card_line()}",
+          flush=True)
+    if replays["graph_replays"] != GRAPH_REPLAYS:
+        raise AssertionError(f"{name}: timed calls not all replays")
+
+    # a parameter with new storage: the warm-up again (two eager calls,
+    # the first of which updates the new storage), then a capture; then
+    # Adam's state loaded: eager again
+    first = graph["bundle"].main_parameters()[0]
+    first.data = first.data.clone()
+    kept = first.detach().clone()
+    before = graph_counts()
+    graph["step"](graph["state"], batches[GRAPH_STEPS + 1])
+    moved = not torch.equal(kept, first.detach())
+    graph["step"](graph["state"], batches[GRAPH_STEPS + 2])
+    graph["step"](graph["state"], batches[0])
+    load_optimizer_state_dict(graph["state"], saved_opt)
+    graph["step"](graph["state"], batches[1])
+    torch.cuda.synchronize(device)
+    recaptured = graph_counts(before)
+    want = {"graph_captures": 1, "graph_replays": 1, "eager": 3}
+    print(f"  {name}: new parameter storage, three calls, Adam's state "
+          f"loaded, a fourth: counts {recaptured} (want {want}); the "
+          f"parameter moved {moved}", flush=True)
+    if recaptured != want or not moved:
+        raise AssertionError(f"{name}: no warm-up and capture after new "
+                             f"storage")
+    check_no_host_reads(eager["bundle"], batches[0], device)
+    print(f"  {name}: forward and backward under sync debug mode 'error': "
+          f"no wait for the device", flush=True)
+    return dict(eager_ms=eager_ms, replay_ms=statistics.median(replay_ms),
+                capture_ms=graph["host_ms"][2])
+
+
+@phase("graph")
+def phase_graph(device="cuda"):
+    """The training step from one CUDA graph (``train.step``), for both
+    benchmark configurations under the trainer's deterministic cuDNN:
+    ``check_graph_config``; -> {configuration: host ms record}."""
+    import gc
+
+    import torch
+
+    from unsupervised_pose_estimation_tpu_torch.train.loop import \
+        deterministic_cudnn
+
+    out = {}
+    with deterministic_cudnn():
+        for name in GRAPH_CELLS:
+            out[name] = check_graph_config(name, device)
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
 def check_bf16_serving_against_cpu(device):
     """An InferenceEngine at bfloat16 on the card against one on the CPU
     with the same weights (seed 3) on the same 4 images at 64x128, held to
@@ -1938,6 +2256,7 @@ def phase_trainer(device="cuda", keep_checkpoints=None):
                          "--width", str(W)]
     root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     main_run, resumed_run, file_run = [], [], []
+    graphs = graph_counts()
     try:
         undo = recording_steps(loop, main_run)
         K.reset_counts()
@@ -2058,7 +2377,8 @@ def phase_trainer(device="cuda", keep_checkpoints=None):
         shutil.rmtree(root, ignore_errors=True)
     launches = K.counts()
     steps = len(main_run) + len(resumed_run) + len(file_run)
-    print(f"  {steps} training steps; launches {launches}", flush=True)
+    print(f"  {steps} training steps (graph counts "
+          f"{graph_counts(graphs)}); launches {launches}", flush=True)
     if device == "cuda":
         missing = [k for k in ("warp_reproj_loss", "warp_reproj_loss_bwd",
                                "reproj_loss") if launches[k] == 0]
@@ -2912,6 +3232,15 @@ def phase_mesh(device="cuda"):
     root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     try:
         total = check_one_nccl_rank(root, device)
+        if device == "cuda":
+            # the two ranks share the card with this process: hand back
+            # what its caches and the earlier phases' graph pools hold
+            import gc
+
+            import torch
+
+            gc.collect()
+            torch.cuda.empty_cache()
         for k, v in check_two_ranks(root, device).items():
             total[k] += v
     finally:
@@ -3870,6 +4199,7 @@ def main() -> int:
         add(K.counts())
     for dtype in ("float32", "bfloat16"):
         add(phase(f"train_step {dtype}")(phase_train_step)(dtype=dtype))
+    phase_graph()
     ladder_records, ladder_total = phase_ladder()
     records.update(ladder_records)
     add(ladder_total)

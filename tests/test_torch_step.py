@@ -31,7 +31,10 @@ from unsupervised_pose_estimation_tpu_torch.serve import (InferenceEngine,
 from unsupervised_pose_estimation_tpu_torch.train import step as tstep
 from unsupervised_pose_estimation_tpu_torch.train.bundle import ModelBundle
 from unsupervised_pose_estimation_tpu_torch.train.state import \
-    create_train_state
+    TrainState as PortState
+from unsupervised_pose_estimation_tpu_torch.train.state import (
+    create_train_state, load_optimizer_state_dict, make_optimizer,
+    optimizer_state_dict)
 
 B, H, W = 2, 64, 128
 KEY = jax.random.PRNGKey(3)
@@ -235,6 +238,54 @@ def test_serving_answers_concurrent_requests(setup):
     assert depth.shape == (1, H, W) and np.isfinite(depth).all()
     with pytest.raises(ValueError):
         engine.predict(imgs[:5])
+
+
+def test_capturable_adam_saves_in_the_eager_form():
+    """Adam as the graphed step runs it (``capturable``, its rate a
+    one-element tensor) takes eager Adam's state, keeping its mode, and
+    saves as eager Adam does: a float rate, the step counts on the host;
+    that state loads into an eager Adam, which then steps as the one it
+    came from."""
+    gen = torch.Generator().manual_seed(4)
+    params = [torch.nn.Parameter(torch.randn(3, 5, generator=gen))
+              for _ in range(2)]
+    grads = [torch.randn(3, 5, generator=gen) for _ in params]
+    opt = make_optimizer(params, 1e-4)
+    for p, g in zip(params, grads):
+        p.grad = g.clone()
+    opt.step()
+    eager = opt.state_dict()
+    eager = {"state": {i: {k: v.clone() for k, v in st.items()}
+                       for i, st in eager["state"].items()},
+             "param_groups": [dict(g) for g in eager["param_groups"]]}
+    graphed = make_optimizer(
+        [torch.nn.Parameter(p.detach().clone()) for p in params], 1e-4,
+        capturable=True)
+    load_optimizer_state_dict(PortState(1, graphed, lambda count: 1e-4),
+                              eager)
+    assert graphed.param_groups[0]["capturable"]
+    graphed.param_groups[0]["lr"] = torch.full((), 1e-4)
+    assert graphed.state_dict()["param_groups"][0]["capturable"]
+    saved = optimizer_state_dict(PortState(1, graphed, lambda count: 1e-4))
+    group = saved["param_groups"][0]
+    assert group["capturable"] is False and isinstance(group["lr"], float)
+    assert group["lr"] == pytest.approx(1e-4, rel=1e-7)
+    for i, st in eager["state"].items():
+        for k, v in st.items():
+            got = saved["state"][i][k]
+            assert got.device.type == "cpu" and got.dtype == v.dtype, k
+            assert torch.equal(got, v), k
+    twin = [torch.nn.Parameter(p.detach().clone()) for p in params]
+    loaded = make_optimizer(twin, 1e-4)
+    load_optimizer_state_dict(PortState(1, loaded, lambda count: 1e-4),
+                              saved)
+    assert not loaded.param_groups[0]["capturable"]
+    for a, b in ((params, opt), (twin, loaded)):
+        for p, g in zip(a, grads):
+            p.grad = g.clone()
+        b.step()
+    for p, q in zip(params, twin):
+        assert torch.equal(p, q)
 
 
 @pytest.mark.parametrize("accum", [1, 2])

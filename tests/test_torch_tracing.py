@@ -355,6 +355,37 @@ def test_train_readers_return_none_without_their_spans(monkeypatch):
     assert [reader(n)(ctx) for n in names] == [None, None]
 
 
+def test_graph_replay_share_reads_the_window_steps(monkeypatch):
+    """``graph_replay_share.train``: % of the window's ``step`` spans that
+    hold a ``step.replay``; 0 for a program that runs every step eagerly,
+    None without the spans."""
+    trace = synthetic_trace(2000.0, 2200.0, [(2030.0, 2080.0)])
+    read = reader("graph_replay_share.train")
+    rec = Recorder()
+    with_recorder(monkeypatch, rec)
+    # five window steps (the first two eager), then one profiled step
+    for k, t in enumerate([1000, 1100, 1200, 1300, 1400, 2000]):
+        children = ([("step.forward", 0, 30), ("step.backward", 30, 80),
+                     ("step.optimizer", 80, 90)] if k < 2 else
+                    [("step.inputs", 0, 5), ("step.replay", 5, 20)])
+        children = [rec.record(name, us(t + a), us(t + b))
+                    for name, a, b in children]
+        step = rec.record("step", us(t), us(t + 100))
+        for child in children:
+            child.parent = step.id
+    assert read({"kind": "train", "steps": 5, "trace": trace}) == \
+        pytest.approx(60.0)
+    assert read({"kind": "train", "steps": 3, "trace": trace}) == \
+        pytest.approx(100.0)
+    assert read({"kind": "train", "steps": 6, "trace": trace}) is None
+    assert read({"kind": "train", "steps": 5, "trace": None}) is None
+    rec.reset()
+    train_run(rec)
+    assert read({"kind": "train", "steps": 3, "trace": trace}) == 0.0
+    monkeypatch.setattr(program_spans, "_tracing", lambda: None)
+    assert read({"kind": "train", "steps": 3, "trace": trace}) is None
+
+
 def serve_run(rec, calls=3):
     """Engine calls of 20 us every 50 us from t = 1000 us, each with h2d 2
     us and forward 8 us, two requests queued 5 us before each call, and

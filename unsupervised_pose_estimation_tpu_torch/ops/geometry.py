@@ -4,12 +4,30 @@ and projection.
 Port of ``unsupervised_pose_estimation_tpu/ops/geometry.py``, in the forms
 the step uses; layouts are the reference's (depth (B, H, W, 1), points
 (B, 3, H*W), planar coordinates (B, 2, H, W)). The small camera matmuls run in float32: callers keep
-``torch.backends.cuda.matmul.allow_tf32`` off, its default.
+``torch.backends.cuda.matmul.allow_tf32`` off, its default. The small
+constant vectors of ``project`` and ``scaled_intrinsics`` are built once
+per (values, dtype, device) (``constant``): a tensor built from host
+numbers on the card is a copy that waits for the device, and a stream
+that is being captured into a CUDA graph cannot wait.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+
+@functools.lru_cache(maxsize=256)
+def constant(values: tuple, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, built on the
+    first call for these arguments and returned again after: the step's
+    later calls copy nothing from the host. Built outside inference mode,
+    so that a step that records gradients may save it for its backward.
+    Shared by every caller: never write to it."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def disp_to_depth(disp, min_depth: float, max_depth: float):
@@ -100,8 +118,7 @@ def project(points, K, T, height: int, width: int, eps: float = 1e-7):
     P = (K @ T)[:, :3, :]
     cam = P[:, :, :3] @ points + P[:, :, 3:4]
     xy = cam[:, :2] / (cam[:, 2:3] + eps)
-    scale = torch.tensor([width - 1, height - 1], dtype=points.dtype,
-                         device=points.device)
+    scale = constant((width - 1, height - 1), points.dtype, points.device)
     pix = xy.reshape(points.shape[0], 2, height, width)
     return (pix / scale[:, None, None] - 0.5) * 2.0
 
@@ -109,9 +126,8 @@ def project(points, K, T, height: int, width: int, eps: float = 1e-7):
 def scaled_intrinsics(K_norm, width: int, height: int, scale: int):
     """Resolution-normalised K (B, 4, 4) -> pixel-unit K at pyramid level
     ``scale``."""
-    mult = torch.ones(4, dtype=K_norm.dtype, device=K_norm.device)
-    mult[0] = width // (2 ** scale)
-    mult[1] = height // (2 ** scale)
+    mult = constant((width // (2 ** scale), height // (2 ** scale), 1, 1),
+                    K_norm.dtype, K_norm.device)
     return K_norm * mult[None, :, None]
 
 

@@ -20,7 +20,7 @@ nvcc call, loaded through ctypes) and counts launches and ladder rungs.
 | corners.fetch_corners_packed_v7 (K8) | csrc/corners.cu         | warp_kernel.py v7          |
 """
 
-from ._lib import counts, reset_counts, rung_counts  # noqa: F401
+from ._lib import add_counts, counts, reset_counts, rung_counts  # noqa: F401
 from .corners import (fetch_corners, fetch_corners_packed,  # noqa: F401
                       fetch_corners_packed_plain, fetch_corners_packed_v7,
                       fetch_corners_packed_v7_plain, fetch_corners_plain)

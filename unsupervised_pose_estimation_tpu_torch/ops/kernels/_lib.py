@@ -188,13 +188,28 @@ def reset_counts() -> None:
 
 
 def count_rung(name: str) -> None:
+    """Count one warp through rung ``name``. In a step replayed from a CUDA
+    graph (``train.step``) the graph's capture takes its counts back and
+    each replay adds them (``add_counts``)."""
     with _lock:
         RUNGS[name] += 1
 
 
+def add_counts(launches: dict, rungs: dict, times: int = 1) -> None:
+    """Add ``times`` x ``launches`` and ``rungs`` (name -> count) to the
+    counts: a CUDA graph's at each replay, and at its capture, which
+    records the launches without running them, -1 x them (``train.step``)."""
+    with _lock:
+        for table, add in ((LAUNCHES, launches), (RUNGS, rungs)):
+            for name, n in add.items():
+                table[name] += times * n
+
+
 def launch(name: str, fn: str, *args) -> None:
     """Call launcher ``fn`` of the library, raise if it returns a CUDA error
-    (a refused launch never runs), else count one launch of ``name``."""
+    (a refused launch never runs), else count one launch of ``name``. In
+    a step replayed from a CUDA graph (``train.step``) the graph's capture
+    takes its counts back and each replay adds them (``add_counts``)."""
     lib = library()
     code = getattr(lib, fn)(*args)
     if code != 0:

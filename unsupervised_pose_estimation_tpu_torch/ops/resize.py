@@ -50,14 +50,27 @@ def _weights(in_size: int, out_size: int, method: str) -> np.ndarray:
     return w
 
 
+@functools.lru_cache(maxsize=256)
+def _weights_on(in_size: int, out_size: int, method: str,
+                device: torch.device) -> torch.Tensor:
+    """``_weights`` as a tensor on ``device``, copied there on the first
+    call for these arguments only: a copy from the host waits for the
+    device (and cannot be captured into a CUDA graph). Built outside
+    inference mode, so that a step that records gradients may save it for
+    its backward. Shared by every caller: never write to it."""
+    with torch.inference_mode(False):
+        return torch.tensor(_weights(in_size, out_size, method),
+                            device=device)
+
+
 def resize(x, height: int, width: int, method: str):
     """Resize NHWC ``x`` to (height, width) like ``jax.image.resize``."""
     _, h, w, _ = x.shape
     if h != height:
-        wy = torch.tensor(_weights(h, height, method), device=x.device)
+        wy = _weights_on(h, height, method, x.device)
         x = torch.einsum("bhwc,hH->bHwc", x, wy)
     if w != width:
-        wx = torch.tensor(_weights(w, width, method), device=x.device)
+        wx = _weights_on(w, width, method, x.device)
         x = torch.einsum("bhwc,wW->bhWc", x, wx)
     return x
 

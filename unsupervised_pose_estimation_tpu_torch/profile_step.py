@@ -23,7 +23,9 @@ around work that ends in a synchronize), device busy time (the union of the
 device's kernel, copy and set intervals in the traced stretch: concurrent
 kernels count once), the idle share (1 - busy / the stretch), the host time
 of each ``tracing`` span the calls recorded (the training step's
-``step.forward``, ``step.backward`` and ``step.optimizer``), the kernels
+``step.forward``, ``step.backward`` and ``step.optimizer``; at version 8 the
+warm-up's third call captures the step in a CUDA graph, and the traced calls
+replay it: ``step.inputs`` and ``step.replay``), the kernels
 that take the most device time, and the convolution and matmul operators
 (with input shapes) that launched the most. One JSON line per workload,
 after a line with the card's name and power limit.

@@ -14,7 +14,11 @@ Over a mesh with fsdp > 1 (the reference's ``train_state_shardings``)
 Adam moments are those of that shard alone; BatchNorm statistics, the GAN
 prior's networks, the discriminator's Adam and the step stay replicated.
 Adam is elementwise, so a shard's update is the same as the unsharded
-one's.
+one's. On one CUDA device of one process the main Adam is made in its
+``capturable`` mode (``adam_capturable``: the step counts and the bias
+corrections on the device), so that the training step can replay it from a
+CUDA graph (``train.step``); its state is saved as eager Adam's and loads
+into either mode.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import math
 from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..config import Options
@@ -50,12 +55,32 @@ def lr_schedule(cfg: Options, steps_per_epoch: int = 1) -> Schedule:
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter],
-                   learning_rate: float) -> torch.optim.Adam:
+                   learning_rate: float,
+                   capturable: bool = False) -> torch.optim.Adam:
     """Adam with betas (0.9, 0.999) and eps 1e-8: the arithmetic of optax
     ``adam`` (and of torch's Adam defaults, the reference trainer's
-    optimizer). The step sets the rate of each update from the schedule."""
-    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
-                            eps=1e-8)
+    optimizer), in its ``capturable`` mode when asked. The step sets the
+    rate of each update from the schedule."""
+    opt = torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
+                           eps=1e-8, capturable=capturable)
+    # its calls outside a capture (a graph's warm-up, the configurations
+    # that run eagerly) are meant: no warning for them
+    opt._warned_capturable_if_run_uncaptured = capturable
+    return opt
+
+
+def adam_capturable(device) -> bool:
+    """Whether the main Adam of parameters on ``device`` is made
+    ``capturable``: on a CUDA device in one process (no process group, or
+    one of one), where the training step may replay it from a CUDA graph
+    (``train.step.graph_capturable``). Elsewhere it is eager Adam, the
+    reference's."""
+    return torch.device(device).type == "cuda" and (
+        not dist.is_initialized() or dist.get_world_size() == 1)
+
+
+def is_capturable(optimizer: torch.optim.Optimizer) -> bool:
+    return all(g["capturable"] for g in optimizer.param_groups)
 
 
 def make_disc_optimizer(params: Iterable[torch.nn.Parameter],
@@ -223,17 +248,33 @@ def full_params(state: Optional[TrainState]):
 
 def optimizer_state_dict(state: TrainState) -> dict:
     """The main Adam's state_dict in the checkpoints' format (Adam over
-    the parameters one by one), gathered under fsdp (a collective)."""
+    the parameters one by one, eager: a float rate and the step counts on
+    the host), whatever its mode, gathered under fsdp (a collective)."""
     if state.shards is None:
-        return state.optimizer.state_dict()
+        return _in_mode(state.optimizer.state_dict(), False)
     return state.shards.optimizer_state_dict(state.optimizer)
+
+
+def _in_mode(saved: dict, capturable: bool) -> dict:
+    """An Adam state_dict with its groups in ``capturable`` mode or out of
+    it, the rate a float. Out of it the step counts are float32 on the
+    host, as eager Adam keeps them; a capturable Adam moves them to its
+    parameters' device as it loads them."""
+    groups = [dict(g, capturable=capturable, lr=float(g["lr"]))
+              for g in saved["param_groups"]]
+    state = saved["state"]
+    if not capturable:
+        state = {i: {**st, "step": st["step"].to("cpu", torch.float32)}
+                 if "step" in st else st for i, st in state.items()}
+    return {"state": state, "param_groups": groups}
 
 
 def load_optimizer_state_dict(state: TrainState, saved: dict):
     """Load a state_dict in the checkpoints' format into the main Adam
-    (this rank's shard of it under fsdp)."""
+    (this rank's shard of it under fsdp), keeping the Adam's mode."""
     if state.shards is None:
-        state.optimizer.load_state_dict(saved)
+        state.optimizer.load_state_dict(
+            _in_mode(saved, is_capturable(state.optimizer)))
     else:
         state.shards.load_optimizer_state_dict(state.optimizer, saved)
 
@@ -259,10 +300,13 @@ def create_train_state(bundle: ModelBundle, steps_per_epoch: int = 1,
                        mesh: Optional[Mesh] = None) -> TrainState:
     """A fresh state at step 0: Adam over ``bundle.main_parameters()``
     (the reference's ``params``: the frozen generator and the
-    discriminator are not in it) and, with a discriminator, its own
+    discriminator are not in it; ``capturable`` where
+    ``adam_capturable``) and, with a discriminator, its own
     Adam; placed on ``mesh`` (``shard_train_state``) when given."""
     schedule = lr_schedule(bundle.cfg, steps_per_epoch)
-    optimizer = make_optimizer(bundle.main_parameters(), schedule(0))
+    params = bundle.main_parameters()
+    optimizer = make_optimizer(params, schedule(0),
+                               adam_capturable(params[0].device))
     disc = bundle.discriminator
     state = TrainState(step=0, optimizer=optimizer, schedule=schedule,
                        disc_optimizer=None if disc is None else

@@ -42,13 +42,15 @@ import hashlib
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .. import tracing
 from ..data.pipeline import process_local_rows
 from ..ops import geometry as G
 from ..ops import losses as L
 from ..ops.augment_device import batch_augment
-from ..ops.kernels import (grid_sample_fast, reproj_loss_op, warp_op,
+from ..ops.kernels import (add_counts, counts, grid_sample_fast,
+                           reproj_loss_op, rung_counts, warp_op,
                            warp_reproj_loss_op)
 from ..ops.kernels.warp import INV255
 from ..ops.resize import image_pyramid, resize_bilinear
@@ -56,7 +58,7 @@ from ..ops.warp import grid_sample
 from ..parallel.mesh import (Mesh, all_reduce_sum, average_gradients,
                              mean_over_ranks, share_batch_statistics)
 from .bundle import ModelBundle
-from .state import TrainState, full_params
+from .state import TrainState, full_params, is_capturable
 
 
 def _f32(x):
@@ -376,6 +378,196 @@ def global_norm(tensors) -> torch.Tensor:
         [torch.linalg.vector_norm(t) for t in tensors]))
 
 
+def draw_noise(cfg, batch_size: int, generator: torch.Generator, device
+               ) -> Optional[Dict[int, torch.Tensor]]:
+    """The automask tie-break noise that the training step's forward draws
+    from ``generator`` when it is given none: for each of the
+    ``cfg.grad_accum`` microbatches, one ``losses.tie_break_noise`` per
+    scale in ``cfg.scales`` order, of the identity losses' shape (B / n, h,
+    w, S), S being the number of source frames, or 1 under
+    ``avg_reprojection``, and (h, w) the full size, or the scale's own
+    under ``v1_multiscale``. -> {scale: (B, h, w, S)}, the microbatches'
+    draws one after another, the same numbers as the forward's own draws;
+    None without automasking (nothing is drawn)."""
+    if cfg.disable_automasking:
+        return None
+    n = batch_size // cfg.grad_accum
+    sources = 1 if cfg.avg_reprojection else (
+        len(cfg.frame_ids) - 1 + (1 if cfg.use_stereo else 0))
+
+    def shape(s):
+        level = s if cfg.v1_multiscale else 0
+        return (n, cfg.height >> level, cfg.width >> level, sources)
+
+    draws = [{s: L.tie_break_noise(shape(s), generator, device)
+              for s in cfg.scales} for _ in range(cfg.grad_accum)]
+    return {s: torch.cat([d[s] for d in draws]) for s in cfg.scales}
+
+
+def graph_capturable(cfg, device, mesh: Optional[Mesh] = None,
+                     shards=None) -> bool:
+    """Whether ``build_train_step``'s step runs from one CUDA graph (its
+    Adam being ``capturable``, as ``state.adam_capturable`` makes it): on a
+    CUDA device, in one process (no mesh, or a mesh of one process whose
+    group, if any, is NCCL's: gloo's all-reduce of a device tensor goes
+    through the host), without fsdp ``shards``, and with a forward that
+    reads nothing back from the device once it has run. It reads the host
+    under the warp ladders of ``pallas_warp_version`` below 8 (their gates
+    read flags back), ``v1_multiscale`` (float frames through the ladder),
+    ``predictive_mask`` (clip bounds made from host numbers) and the GAN
+    prior's ``pre_trained_generator`` (the grey weights): those run
+    eagerly."""
+    return (torch.device(device).type == "cuda"
+            and (mesh is None or (mesh.size == 1 and (
+                mesh.group is None
+                or dist.get_backend(mesh.group) == "nccl")))
+            and shards is None
+            and not (cfg.use_pallas_warp and cfg.pallas_warp_version < 8)
+            and not (cfg.v1_multiscale or cfg.predictive_mask
+                     or cfg.pre_trained_generator))
+
+
+def _backend_flags() -> tuple:
+    """The settings that choose the step's algorithms: a graph keeps the
+    ones it was captured under."""
+    return (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.are_deterministic_algorithms_enabled())
+
+
+class _StepGraph:
+    """The training step of ``graph_capturable`` configurations, replayed
+    from one ``torch.cuda.CUDAGraph``: the forward, the backward, the
+    gradient norm and Adam's update (its ``capturable`` mode, its rate a
+    device tensor filled from the schedule before each call).
+
+    The first ``WARM`` calls with a given configuration, batch and noise
+    layout and backend settings run eagerly on a side stream (PyTorch's
+    whole-network warm-up); the next captures the step and replays it
+    once; later ones copy the batch and the noise into the graph's static
+    buffers and replay it. A change of any of those, or new storage of a
+    parameter, buffer or Adam tensor (a loaded state), drops the graph and
+    starts the warm-up again: a caller that loads a state before every
+    call runs eagerly throughout. Without ``noise`` it is drawn before each
+    call as the forward would draw it (``draw_noise``), so every call
+    computes the eager step's numbers. Each replay adds the kernel
+    launches and ladder rungs that the capture recorded to
+    ``ops.kernels``' counts, as an eager call would."""
+
+    WARM = 2
+
+    def __init__(self, bundle: ModelBundle, update):
+        self.bundle, self.update = bundle, update
+        self.graph = self.key = self.storages = None
+        self.watched = self.opt_state = None
+        self.warm = 0
+        self.lr = self.side = None
+        self.batch = self.noise = self.packed = self.names = None
+        self.launches = self.rungs = None
+
+    def __call__(self, state: TrainState, batch, generator, noise):
+        cfg = self.bundle.cfg
+        device = batch["color"].device
+        with tracing.span("step.inputs"):
+            if self.lr is None or self.lr.device != device:
+                self.lr = torch.zeros((), dtype=torch.float32, device=device)
+            self.lr.fill_(state.schedule(state.step))
+            if noise is None:
+                if generator is None:
+                    generator = noise_generator(cfg.seed, state.step, device)
+                noise = draw_noise(cfg, batch["color"].shape[0], generator,
+                                   device)
+            key = (tuple(vars(cfg).values()),
+                   [(k, v.shape, v.dtype, v.device) for k, v in batch.items()],
+                   None if noise is None else
+                   [(s, t.shape, t.dtype) for s, t in noise.items()],
+                   _backend_flags())
+            if key != self.key or self._moved(state):
+                # a new layout, or new storage (a loaded state): the
+                # warm-up again, then a capture
+                self.graph, self.key, self.warm = None, key, 0
+                self._watch(state)
+            if self.graph is not None:
+                self._copy_inputs(batch, noise)
+        if self.graph is None and self.warm < self.WARM:
+            self.warm += 1
+            return self._eager(state, batch, generator, noise)
+        if self.graph is None:
+            self._capture(state, batch, generator, noise)
+        if not self.bundle.training:
+            self.bundle.train(True)
+        with tracing.span("step.replay"):
+            self.graph.replay()
+        add_counts(self.launches, self.rungs)
+        tracing.count("step.graph_replays")
+        state.step += 1
+        return dict(zip(self.names, self.packed.clone().unbind()))
+
+    def _watch(self, state: TrainState):
+        """Note the tensors the graph reads and writes: the bundle's
+        parameters and buffers and Adam's state, and their storages."""
+        opt = state.optimizer
+        self.watched = [*self.bundle.parameters(), *self.bundle.buffers()]
+        for st in opt.state.values():
+            self.watched.extend(v for v in st.values() if torch.is_tensor(v))
+        self.opt_state = opt.state
+        self.storages = [t.data_ptr() for t in self.watched]
+
+    def _moved(self, state: TrainState) -> bool:
+        """Whether Adam's state was replaced (a load) or a watched tensor
+        has new storage since ``_watch``."""
+        return (self.watched is None
+                or state.optimizer.state is not self.opt_state
+                or [t.data_ptr() for t in self.watched] != self.storages)
+
+    def _copy_inputs(self, batch, noise):
+        for k, v in batch.items():
+            self.batch[k].copy_(v, non_blocking=True)
+        for s, t in (noise or {}).items():
+            self.noise[s].copy_(t, non_blocking=True)
+
+    def _eager(self, state: TrainState, batch, generator, noise):
+        tracing.count("step.eager")
+        current = torch.cuda.current_stream(batch["color"].device)
+        if self.side is None or self.side.device != current.device:
+            self.side = torch.cuda.Stream(current.device)
+        self.side.wait_stream(current)
+        with torch.cuda.stream(self.side):
+            losses = self.update(state, batch, generator, noise, self.lr)
+        current.wait_stream(self.side)
+        for v in losses.values():
+            v.record_stream(current)
+        state.step += 1
+        return losses
+
+    def _capture(self, state: TrainState, batch, generator, noise):
+        self.batch = {k: torch.empty_like(v) for k, v in batch.items()}
+        self.noise = (None if noise is None else
+                      {s: torch.empty_like(t) for s, t in noise.items()})
+        self._copy_inputs(batch, noise)
+        for p in self.bundle.main_parameters():
+            p.grad = None
+        graph = torch.cuda.CUDAGraph()
+        launches, rungs = counts(), rung_counts()
+        # thread_local: other threads (the Loader's, waiting on its copy
+        # events) may call CUDA while this one captures
+        with tracing.span("step.capture"), torch.cuda.graph(
+                graph, capture_error_mode="thread_local"):
+            losses = self.update(state, self.batch, generator, self.noise,
+                                 self.lr)
+            self.names = list(losses)
+            self.packed = torch.stack([losses[k] for k in self.names])
+        del losses
+        # the capture ran nothing: its counts are the replays'
+        self.launches = {k: n - launches[k] for k, n in counts().items()}
+        self.rungs = {k: n - rungs[k] for k, n in rung_counts().items()}
+        add_counts(self.launches, self.rungs, -1)
+        self.graph = graph
+        self._watch(state)
+        tracing.count("step.graph_captures")
+
+
 def build_train_step(bundle: ModelBundle, mesh: Optional[Mesh] = None):
     """-> step(state, batch, generator=None, noise=None) -> losses: one
     training step of ``state`` (forward with BatchNorm on batch statistics,
@@ -406,11 +598,22 @@ def build_train_step(bundle: ModelBundle, mesh: Optional[Mesh] = None):
     parameters are gathered for the step, Adam updates this rank's shard,
     and the full parameters are freed again.
 
-    Each call is a ``tracing`` span ``step`` holding ``step.forward``
-    (``forward_and_loss``) and ``step.backward`` for each microbatch, then
-    ``step.optimizer`` (the mesh's averaging of the gradients and the
-    losses, the microbatches' mean, ``grad_norm``, the learning rate and
-    the update): the host's time enqueueing each phase.
+    Where ``graph_capturable`` admits the call and Adam is ``capturable``
+    (``state.adam_capturable``), the step is replayed from one CUDA graph
+    after two eager calls (``_StepGraph``). The losses returned are the
+    call's own:
+    a later call leaves them as they are.
+
+    Each call is a ``tracing`` span ``step``. An eager call holds
+    ``step.forward`` (``forward_and_loss``) and ``step.backward`` for each
+    microbatch, then ``step.optimizer`` (the mesh's averaging of the
+    gradients and the losses, the microbatches' mean, ``grad_norm``, the
+    learning rate and the update): the host's time enqueueing each phase.
+    A graph's call holds ``step.inputs`` (the rate, the noise's draw and
+    the copies into the graph's buffers) and ``step.replay``; the call
+    that captures also ``step.capture``, with the phases inside it.
+    Counters: ``step.eager``, ``step.graph_captures``,
+    ``step.graph_replays``.
     """
     cfg = bundle.cfg
     accum = cfg.grad_accum
@@ -420,9 +623,20 @@ def build_train_step(bundle: ModelBundle, mesh: Optional[Mesh] = None):
 
     def step(state: TrainState, batch, generator=None, noise=None):
         with tracing.span("step"):
-            return _step(state, batch, generator, noise)
+            if (graph_capturable(cfg, batch["color"].device, mesh,
+                                 state.shards)
+                    and is_capturable(state.optimizer)):
+                return graph(state, batch, generator, noise)
+            tracing.count("step.eager")
+            losses = _update(state, batch, generator, noise,
+                             state.schedule(state.step))
+            state.step += 1
+            return losses
 
-    def _step(state: TrainState, batch, generator, noise):
+    def _update(state: TrainState, batch, generator, noise, lr):
+        """Forward and backward of each microbatch, then the update at
+        rate ``lr`` (a float, or a capturable Adam's device tensor); -> the
+        losses."""
         b = batch["color"].shape[0]
         if accum < 1 or b % accum:
             raise ValueError(f"grad_accum {accum} does not divide the batch "
@@ -474,14 +688,14 @@ def build_train_step(bundle: ModelBundle, mesh: Optional[Mesh] = None):
                 losses = mean_over_ranks(losses, mesh)
             losses["grad_norm"] = global_norm([p.grad for p in params])
             for group in opt.param_groups:
-                group["lr"] = state.schedule(state.step)
+                group["lr"] = lr
             if shards is None:
                 opt.step()
             else:
                 shards.step(opt, flat)
-        state.step += 1
         return losses
 
+    graph = _StepGraph(bundle, _update)
     return step
 
 
